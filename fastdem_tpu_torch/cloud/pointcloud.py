@@ -1,0 +1,153 @@
+"""Fixed-capacity SoA point cloud (port of ``fastdem_tpu/cloud/pointcloud.py``,
+the part the facade uses).
+
+A cloud holds f32[N, 3] points, a bool[N] validity mask and optional named
+channels, all on one device. Padding rows have mask False and xyz set to a
+far-away 1e9 sentinel, so an unmasked consumer maps them out of any grid.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from fastdem_tpu_torch.device import resolve_device
+
+CHANNEL_DTYPES = {
+    "intensity": np.float32,
+    "time": np.float32,
+    "ring": np.int32,
+    "color": np.uint8,
+    "label": np.int32,
+    "normal": np.float32,
+    "covariance": np.float32,
+}
+
+
+@dataclasses.dataclass
+class PointCloud:
+    """SoA point cloud.
+
+    Attributes:
+      xyz: f32[N, 3] point coordinates.
+      mask: bool[N] validity; False entries are padding / filtered out.
+      channels: optional per-point channels (see CHANNEL_DTYPES).
+      frame_id: sensor frame name.
+      timestamp_ns: acquisition time.
+      nominal_count: points provided at construction, before masking
+        (-1 = unknown); the facade's emptiness check reads it without a
+        device sync.
+      valid_count: mask-true points at construction (-1 = unknown); picks
+        the capacity bucket without a device sync.
+    """
+
+    xyz: torch.Tensor
+    mask: torch.Tensor
+    channels: Dict[str, torch.Tensor]
+    frame_id: str = ""
+    timestamp_ns: int = 0
+    nominal_count: int = -1
+    valid_count: int = -1
+
+    @property
+    def capacity(self) -> int:
+        return int(self.xyz.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.xyz.device
+
+    def count(self) -> int:
+        """Number of valid points (device sync)."""
+        return int(self.mask.sum())
+
+    def empty(self) -> bool:
+        if self.nominal_count >= 0:
+            return self.nominal_count == 0
+        return self.capacity == 0 or self.count() == 0
+
+    def to(self, device) -> "PointCloud":
+        """The same cloud with every tensor on ``device``."""
+        dev = resolve_device(device)
+        return dataclasses.replace(
+            self,
+            xyz=self.xyz.to(dev),
+            mask=self.mask.to(dev),
+            channels={k: v.to(dev) for k, v in self.channels.items()},
+        )
+
+
+def from_numpy(
+    xyz: np.ndarray,
+    frame_id: str = "",
+    timestamp_ns: int = 0,
+    capacity: Optional[int] = None,
+    *,
+    device="cpu",
+    **channels: np.ndarray,
+) -> PointCloud:
+    """Build a cloud on ``device`` from host arrays, optionally padded to
+    ``capacity``. Rows with a non-finite coordinate are invalid."""
+    dev = resolve_device(device)
+    xyz = np.asarray(xyz, dtype=np.float32).reshape(-1, 3)
+    n = xyz.shape[0]
+    cap = capacity if capacity is not None else n
+    if cap < n:
+        raise ValueError(f"capacity {cap} < point count {n}")
+    mask = np.zeros(cap, dtype=bool)
+    mask[:n] = True
+    finite = np.isfinite(xyz).all(axis=1)
+    mask[:n] &= finite
+    pad_xyz = np.full((cap, 3), 1e9, dtype=np.float32)
+    pad_xyz[:n] = np.where(finite[:, None], xyz, 1e9)
+    ch_out: Dict[str, torch.Tensor] = {}
+    for name, data in channels.items():
+        if data is None:
+            continue
+        if name not in CHANNEL_DTYPES:
+            raise KeyError(f"unknown channel '{name}'")
+        data = np.asarray(data)
+        buf = np.zeros((cap,) + data.shape[1:], dtype=data.dtype)
+        buf[:n] = data
+        ch_out[name] = torch.from_numpy(buf).to(dev)
+    return PointCloud(
+        xyz=torch.from_numpy(pad_xyz).to(dev),
+        mask=torch.from_numpy(mask).to(dev),
+        channels=ch_out,
+        frame_id=frame_id,
+        timestamp_ns=timestamp_ns,
+        nominal_count=n,
+        valid_count=int(np.count_nonzero(mask)),
+    )
+
+
+def ladder_capacity(n: int, base: int = 4096) -> int:
+    """Round up to the geometric capacity ladder base * 2^k."""
+    if n <= 0:
+        return base
+    cap = base
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+def compact_to_bucket(cloud: PointCloud, base: int = 4096) -> PointCloud:
+    """Drop masked-out points (order preserved) and pad to the capacity
+    ladder. The result lies on the cloud's device; a CUDA cloud pays one
+    device-to-host copy here."""
+    keep = cloud.mask.cpu().numpy()
+    xyz = cloud.xyz.cpu().numpy()[keep]
+    ch = {k: v.cpu().numpy()[keep] for k, v in cloud.channels.items()}
+    out = from_numpy(
+        xyz,
+        frame_id=cloud.frame_id,
+        timestamp_ns=cloud.timestamp_ns,
+        capacity=ladder_capacity(xyz.shape[0], base),
+        device=cloud.device,
+        **ch,
+    )
+    # A nonempty frame whose points were all filtered out stays nonempty.
+    return dataclasses.replace(out, nominal_count=cloud.nominal_count)

@@ -1,0 +1,621 @@
+"""The FastDEM pipeline: preprocess -> map update -> estimate -> raycast
+(port of ``fastdem_tpu/mapping/pipeline.py``, non-windowed LOCAL / GLOBAL
+path with the Kalman estimator).
+
+``build_integrate(geom, cfg, device=...)`` returns the per-scan step
+
+    integrate(state, xyz, mask, T_base_sensor, T_world_base
+              [, intensity, color_packed]) -> (state, IntegrateAux)
+
+on tensors on one device. ``FastDEM`` is the stateful facade. Per scan,
+phase A transforms the points, attaches the LiDAR z-variance, filters,
+rasterizes (with the polar slope scatter riding along) and realizes the
+polar ray field with K1; phase B moves the LOCAL map, runs the Kalman
+update, min/max, obstacle and the raycast visibility update.
+
+Configurations the port does not run yet raise ``NotImplementedError``
+naming their ROADMAP item; none falls back to another computation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from fastdem_tpu_torch.cloud import pointcloud as pc
+from fastdem_tpu_torch.cloud import transform as tfm
+from fastdem_tpu_torch.config import Config, EstimationType, MappingMode
+from fastdem_tpu_torch.device import resolve_device
+from fastdem_tpu_torch.numerics import recip_f32, sum_sq3
+from fastdem_tpu_torch.grid import gridmap
+from fastdem_tpu_torch.grid.geometry import GridGeometry
+from fastdem_tpu_torch.grid.gridmap import GridMapState, layers
+from fastdem_tpu_torch.mapping import kalman as kalman_est
+from fastdem_tpu_torch.mapping import rasterize as raster
+from fastdem_tpu_torch.postprocess import raycasting as raycast
+from fastdem_tpu_torch.sensors.models import create_sensor_model
+
+log = logging.getLogger("fastdem_tpu_torch")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to fastdem_tpu_torch yet (ROADMAP section 1, {item})"
+    )
+
+
+def _check_config(cfg: Config) -> None:
+    if not isinstance(cfg, Config):
+        raise TypeError(
+            "fastdem_tpu_torch takes its own Config (fastdem_tpu_torch.config); "
+            f"got {type(cfg)!r}"
+        )
+    if cfg.mapping.estimation_type == EstimationType.P2_QUANTILE:
+        raise _not_ported("the P2 quantile estimator", "item 9")
+
+
+@dataclasses.dataclass
+class IntegrateAux:
+    """Per-scan auxiliary outputs (the observation-callback payloads)."""
+
+    world_xyz: torch.Tensor  # preprocessed points in the map frame
+    world_mask: torch.Tensor  # surviving-point mask after filters
+    z_var: torch.Tensor  # world z-variance per point
+    obs: raster.CellObservations  # rasterized per-cell observations
+
+
+def estimator_layer_fills(cfg: Config) -> Dict[str, float]:
+    _check_config(cfg)
+    return kalman_est.layer_fills()
+
+
+def initial_layer_fills(
+    cfg: Config, has_intensity: bool = False, has_color: bool = False
+) -> Dict[str, float]:
+    """The full layer set of a pipeline run."""
+    fills = gridmap.default_layer_fills()
+    fills.update(estimator_layer_fills(cfg))
+    fills[layers.obstacle] = np.nan
+    if has_intensity:
+        fills[layers.intensity] = np.nan
+    if has_color:
+        fills[layers.color] = np.nan
+    if cfg.raycasting.enabled:
+        fills.update(raycast.layer_fills())
+    return fills
+
+
+def create_map_state(
+    geom: GridGeometry,
+    cfg: Config,
+    position=(0.0, 0.0),
+    has_intensity: bool = False,
+    has_color: bool = False,
+    *,
+    device,
+) -> GridMapState:
+    return gridmap.create(
+        geom,
+        initial_layer_fills(cfg, has_intensity, has_color),
+        position,
+        device=device,
+    )
+
+
+def _estimate(state: GridMapState, cfg: Config, obs: raster.CellObservations):
+    """Estimator update + bounds per touched cell (Kalman)."""
+    return kalman_est.update(
+        state, cfg.mapping.kalman, obs.min_z, obs.min_z_var, obs.touched
+    )
+
+
+def _update_minmax(state: GridMapState, obs: raster.CellObservations):
+    """Accumulating min / max layers."""
+    stored_min = state.layers[layers.elevation_min]
+    stored_max = state.layers[layers.elevation_max]
+    new_min = torch.where(
+        obs.touched & (torch.isnan(stored_min) | (obs.min_z < stored_min)),
+        obs.min_z,
+        stored_min,
+    )
+    new_max = torch.where(
+        obs.touched & (torch.isnan(stored_max) | (obs.max_z > stored_max)),
+        obs.max_z,
+        stored_max,
+    )
+    return state.replace_layers(
+        {layers.elevation_min: new_min, layers.elevation_max: new_max}
+    )
+
+
+def _update_obstacle(
+    state: GridMapState, obs: raster.CellObservations, frame_nonempty
+):
+    """Per-frame overwrite: obstacle = max_z iff max_z > min_z else NaN; an
+    all-masked frame keeps the previous layer."""
+    obstacle = torch.where(
+        obs.touched & (obs.max_z > obs.min_z), obs.max_z, np.nan
+    )
+    obstacle = torch.where(frame_nonempty, obstacle, state.layers[layers.obstacle])
+    return state.replace_layer(layers.obstacle, obstacle)
+
+
+def _update_intensity(state: GridMapState, obs: raster.CellObservations):
+    """Max-pool accumulation."""
+    if obs.max_intensity is None or layers.intensity not in state.layers:
+        return state
+    stored = state.layers[layers.intensity]
+    has_obs = ~torch.isnan(obs.max_intensity)
+    new = torch.where(
+        has_obs & (torch.isnan(stored) | (obs.max_intensity > stored)),
+        obs.max_intensity,
+        stored,
+    )
+    return state.replace_layer(layers.intensity, new)
+
+
+def _update_color(state: GridMapState, obs: raster.CellObservations):
+    """Write-through color (the min-z point's color)."""
+    if obs.color is None or layers.color not in state.layers:
+        return state
+    stored = state.layers[layers.color]
+    has_obs = ~torch.isnan(obs.color)
+    return state.replace_layer(
+        layers.color, torch.where(has_obs, obs.color, stored)
+    )
+
+
+def build_integrate(
+    geom: GridGeometry,
+    cfg: Config,
+    has_intensity: bool = False,
+    has_color: bool = False,
+    ray_num_azimuth: Optional[int] = None,
+    ray_range_bin_factor: Optional[float] = None,
+    ray_max_range: Optional[float] = None,
+    ray_exact_window: bool = True,
+    scatter_mode: str = "rows",
+    voxel_count_mode: Optional[str] = None,
+    polar_field_impl: Optional[str] = None,
+    window_update: Optional[bool] = None,
+    window_margin: float = 2.0,
+    spmd_blocks: Optional[tuple] = None,
+    *,
+    device,
+):
+    """Build the per-scan integrate step for tensors on ``device``.
+
+    Returned signature:
+      integrate(state, xyz, mask, T_base_sensor, T_world_base,
+                intensity=None, color_packed=None) -> (state, IntegrateAux)
+
+    ``xyz`` is the sensor-frame cloud (f32[N, 3]); transforms are 4x4 f32.
+    The arguments mean what they mean in the reference; ``polar_field_impl``
+    "auto" runs K1 on CUDA and its plain twin on the CPU, "pallas" is K1
+    only and "xla" the plain twin only.
+    """
+    dev = resolve_device(device)
+    phase_a, phase_b, moved_position = _build_phases(
+        geom, cfg, ray_num_azimuth, ray_range_bin_factor, ray_max_range,
+        scatter_mode, voxel_count_mode, ray_exact_window,
+        polar_field_impl=polar_field_impl, window_update=window_update,
+        window_margin=window_margin, spmd_blocks=spmd_blocks, device=dev,
+    )
+    local_mode = cfg.mapping.mode == MappingMode.LOCAL
+
+    def integrate(state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
+        # The post-move LOCAL position is pure pose arithmetic, so phase A
+        # depends only on the inputs, not on the carried layers.
+        position = (
+            moved_position(state.position, T_wb[:2, 3])
+            if local_mode
+            else state.position
+        )
+        pa = phase_a(position, xyz, mask, T_bs, T_wb, intensity, color_packed)
+        state = phase_b(state, T_wb, torch.any(mask), pa)
+        obs, _ray, _origin, xyz_world, keep, z_var = pa
+        aux = IntegrateAux(world_xyz=xyz_world, world_mask=keep, z_var=z_var, obs=obs)
+        return state, aux
+
+    return integrate
+
+
+def _build_phases(
+    geom: GridGeometry,
+    cfg: Config,
+    ray_num_azimuth: Optional[int],
+    ray_range_bin_factor: Optional[float],
+    ray_max_range: Optional[float],
+    scatter_mode: str,
+    voxel_count_mode: Optional[str],
+    ray_exact_window: bool = True,
+    polar_field_impl: Optional[str] = None,
+    window_update: Optional[bool] = None,
+    window_margin: float = 2.0,
+    spmd_blocks: Optional[tuple] = None,
+    *,
+    device: torch.device,
+):
+    """Split the step into ``phase_a`` (per-scan work independent of the
+    carried layers), ``phase_b`` (the sequential map update) and
+    ``moved_position`` (gridmap.move's lattice walk of the position)."""
+    _check_config(cfg)
+    if voxel_count_mode is None:
+        voxel_count_mode = cfg.raycasting.voxel_count_mode
+    if ray_num_azimuth is None:
+        ray_num_azimuth = int(cfg.raycasting.num_azimuth_bins)
+    if ray_range_bin_factor is None:
+        ray_range_bin_factor = float(cfg.raycasting.range_bin_factor)
+    ray_range_explicit = ray_max_range is not None
+    if ray_max_range is None and cfg.raycasting.max_range > 0:
+        ray_max_range = float(cfg.raycasting.max_range)
+        ray_range_explicit = True
+    if scatter_mode not in ("rows", "packed", "twophase", "sort"):
+        raise ValueError(f"unknown scatter_mode: {scatter_mode!r}")
+    if scatter_mode != "rows":
+        raise _not_ported(f"scatter_mode={scatter_mode!r}", "the scatter-mode note after item 19")
+    if spmd_blocks is not None:
+        raise _not_ported("spmd_blocks (sharded maps)", "item 19")
+    if cfg.raycasting.enabled and cfg.raycasting.method == "sampled":
+        raise _not_ported('raycasting.method="sampled"', "item 13")
+    sensor = create_sensor_model(cfg.sensor_model)
+    pf = cfg.point_filter
+    local_mode = cfg.mapping.mode == MappingMode.LOCAL
+    # Squared range bounds, clamped to the f32 range.
+    _F32_MAX = 3.4028235e38
+    rmin2 = min(pf.range_min * pf.range_min, _F32_MAX)
+    rmax2 = min(pf.range_max * pf.range_max, _F32_MAX)
+    # Polar-field range bound (see the reference for the derivation).
+    window_margin = max(float(window_margin), 0.0)
+    if ray_max_range is None and pf.range_max < 1e6:
+        ray_max_range = float(pf.range_max) * 1.1 + window_margin
+    if local_mode:
+        half_diag = 0.5 * math.hypot(geom.rows, geom.cols) * geom.resolution
+        local_bound = half_diag + window_margin + 2.0 * geom.resolution
+        if ray_max_range is None or (
+            not ray_range_explicit and ray_max_range > local_bound
+        ):
+            ray_max_range = local_bound
+
+    # The reference's update window (engaged when the point filter's range
+    # bound covers at most half the map) is not ported.
+    upd_bound = (
+        float(pf.range_max) * 1.1 + window_margin if pf.range_max < 1e6 else None
+    )
+    if upd_bound is not None:
+        _wcells = int(math.ceil(2.0 * upd_bound / geom.resolution)) + 4
+        upd_wr, upd_wc = min(geom.rows, _wcells), min(geom.cols, _wcells)
+    else:
+        upd_wr, upd_wc = geom.rows, geom.cols
+    windowed = window_update is not False and 2 * upd_wr * upd_wc <= geom.num_cells
+    if windowed:
+        raise _not_ported("the windowed map update", "item 10")
+    if geom.num_cells > (1 << 19):
+        raise _not_ported(
+            "the rows->packed rasterizer switch above 2^19 cells", "item 10"
+        )
+    if cfg.raycasting.enabled:
+        if ray_max_range is not None:
+            wcells = int(math.ceil(2.0 * ray_max_range / geom.resolution)) + 4
+            if (min(geom.rows, wcells), min(geom.cols, wcells)) != geom.shape:
+                raise _not_ported("the windowed ray-field resample", "item 10")
+        impl = (
+            polar_field_impl
+            if polar_field_impl is not None
+            else cfg.raycasting.polar_field_impl
+        )
+        windows = raycast.column_windows(
+            geom, ray_num_azimuth, ray_range_bin_factor, ray_max_range, device
+        )
+
+    def moved_position(position, target_xy):
+        # Must match gridmap.move's arithmetic exactly.
+        res = geom.resolution
+        delta = gridmap.round_half_away(
+            (target_xy - position) * recip_f32(res)
+        ).to(torch.int32)
+        return position + delta.to(torch.float32) * res
+
+    def phase_a(position, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
+        # ---- 1. Preprocess ----
+        T_ws = T_wb @ T_bs
+        r3 = T_ws[2, :3]  # third row of the sensor->world rotation
+        z_var = sensor.z_variance_world(xyz, r3)
+
+        xyz_base = tfm.transform_points(xyz, T_bs)
+        d2 = sum_sq3(xyz_base)
+        keep = (
+            mask
+            & (d2 >= rmin2)
+            & (d2 <= rmax2)
+            & (xyz_base[:, 2] >= pf.z_min)
+            & (xyz_base[:, 2] <= pf.z_max)
+        )
+        xyz_world = tfm.transform_points(xyz_base, T_wb)
+        sensor_origin = T_ws[:3, 3]
+
+        # ---- 2. Rasterize, with the polar slope scatter and the ray-field
+        # lookups riding along ----
+        extra = None
+        rider = None
+        if cfg.raycasting.enabled:
+            origin_inside = geom.is_inside(position, sensor_origin[:2])
+            extra = raycast.polar_scatter_spec(
+                geom, position, xyz_world, keep & origin_inside,
+                sensor_origin, ray_num_azimuth, ray_range_bin_factor,
+                ray_max_range,
+            )
+            a0, a1, r_idx, ray_in_range = raycast.resample_indices(
+                geom, position, sensor_origin,
+                ray_num_azimuth, ray_range_bin_factor, ray_max_range,
+            )
+            # [R, A] field layout: flat = r * A + a.
+            flat0 = (r_idx * ray_num_azimuth + a0).reshape(-1)
+            if ray_exact_window:
+                flat_idx = flat0
+            else:
+                flat1 = (r_idx * ray_num_azimuth + a1).reshape(-1)
+                flat_idx = torch.cat([flat0, flat1])
+
+            def rider(polar_table):
+                smeared = raycast.polar_smeared_field(
+                    geom, sensor_origin, polar_table,
+                    ray_num_azimuth, ray_range_bin_factor, ray_max_range,
+                    exact_window=ray_exact_window, impl=impl, windows=windows,
+                )
+                return smeared.reshape(-1), flat_idx
+
+        obs = raster.rasterize_scatter_rows(
+            geom,
+            position,
+            xyz_world,
+            keep,
+            z_var,
+            intensity=intensity,
+            color_packed=color_packed,
+            with_voxel_count=cfg.raycasting.enabled,
+            extra_min_scatter=extra,
+            phase_gather_rider=rider,
+            voxel_count_mode=voxel_count_mode,
+        )
+
+        # ---- 3. Per-cell min ray height from the field lookups ----
+        ray = None
+        if cfg.raycasting.enabled:
+            ncell = geom.num_cells
+            h_cell = obs.extra[:ncell].reshape(geom.shape)
+            if not ray_exact_window:
+                h_cell = torch.minimum(h_cell, obs.extra[ncell:].reshape(geom.shape))
+            ray_touched = torch.isfinite(h_cell) & ray_in_range
+            ray_min = torch.where(ray_touched, h_cell, np.nan)
+            ray = (ray_min, ray_touched)
+        return obs, ray, sensor_origin, xyz_world, keep, z_var
+
+    def phase_b(state, T_wb, frame_nonempty, pa):
+        obs, ray, sensor_origin, _xyz_world, _keep, _z_var = pa
+        if local_mode:
+            state = gridmap.move(geom, state, T_wb[:2, 3])
+        state = _estimate(state, cfg, obs)
+        state = _update_minmax(state, obs)
+        state = _update_obstacle(state, obs, frame_nonempty)
+        state = _update_intensity(state, obs)
+        state = _update_color(state, obs)
+        if cfg.raycasting.enabled:
+            state = raycast.apply_raycasting(
+                geom,
+                state,
+                sensor_origin,
+                cfg.raycasting,
+                obs_count=obs.voxel_count,
+                ray_min_touched=ray,
+                frame_nonempty=frame_nonempty,
+            )
+        return state
+
+    return phase_a, phase_b, moved_position
+
+
+def pack_rgb(rgb: torch.Tensor) -> torch.Tensor:
+    """u8[..., 3] -> f32[...] bit-packed color value (r << 16 | g << 8 | b)."""
+    rgb = rgb.to(torch.int32)
+    bits = (rgb[..., 0] << 16) | (rgb[..., 1] << 8) | rgb[..., 2]
+    return bits.contiguous().view(torch.float32)
+
+
+class FastDEM:
+    """Host-side facade: owns the map state on ``device`` and the step.
+
+    Not thread-safe, like the reference.
+    """
+
+    def __init__(
+        self,
+        geom: GridGeometry,
+        cfg: Optional[Config] = None,
+        position=(0.0, 0.0),
+        frame_id: str = "map",
+        has_intensity: bool = False,
+        has_color: bool = False,
+        auto_bucket: bool = True,
+        *,
+        device,
+    ):
+        self.device = resolve_device(device)
+        self.geom = geom
+        self.cfg = cfg or Config()
+        self.frame_id = frame_id
+        self.has_intensity = has_intensity
+        self.has_color = has_color
+        # Compact and re-pad scans to the capacity ladder when their valid
+        # count sits well below capacity (see integrate()).
+        self.auto_bucket = auto_bucket
+        self.state = create_map_state(
+            geom, self.cfg, position, has_intensity, has_color, device=self.device
+        )
+        # Base->sensor translation allowance baked into the polar-field
+        # bound; widened (with a step rebuild) when a larger extrinsic
+        # shows up.
+        self._window_margin = 2.0
+        self._step = self._build_step()
+        self.calibration = None  # provider with get_extrinsic(frame_id)
+        self.odometry = None  # provider with get_pose_at(timestamp_ns)
+        self.on_preprocessed = None
+        self.on_rasterized = None
+        self.last_aux: Optional[IntegrateAux] = None
+
+    def _build_step(self):
+        return build_integrate(
+            self.geom, self.cfg, self.has_intensity, self.has_color,
+            window_margin=self._window_margin, device=self.device,
+        )
+
+    # -- fluent setters: each rebuilds the step ------------------------------
+    def _rebuild(self):
+        self._step = self._build_step()
+        # Estimator / raycast layer sets may change; keep existing layers.
+        fills = initial_layer_fills(self.cfg, self.has_intensity, self.has_color)
+        lyr = dict(self.state.layers)
+        for name, fill in fills.items():
+            if name not in lyr:
+                lyr[name] = torch.full(
+                    self.geom.shape, fill, dtype=torch.float32, device=self.device
+                )
+        self.state = GridMapState(layers=lyr, position=self.state.position)
+
+    def set_mapping_mode(self, mode: MappingMode) -> "FastDEM":
+        self.cfg.mapping.mode = mode
+        self._rebuild()
+        return self
+
+    def set_estimator_type(self, est: EstimationType) -> "FastDEM":
+        self.cfg.mapping.estimation_type = est
+        self._rebuild()
+        return self
+
+    def set_sensor_model(self, sensor_type) -> "FastDEM":
+        self.cfg.sensor_model.type = sensor_type
+        self._rebuild()
+        return self
+
+    def set_height_filter(self, z_min: float, z_max: float) -> "FastDEM":
+        self.cfg.point_filter.z_min = z_min
+        self.cfg.point_filter.z_max = z_max
+        self._rebuild()
+        return self
+
+    def set_range_filter(self, rmin: float, rmax: float) -> "FastDEM":
+        self.cfg.point_filter.range_min = rmin
+        self.cfg.point_filter.range_max = rmax
+        self._rebuild()
+        return self
+
+    def enable_raycasting(self, enabled: bool = True) -> "FastDEM":
+        self.cfg.raycasting.enabled = enabled
+        self._rebuild()
+        return self
+
+    def set_calibration_provider(self, provider) -> "FastDEM":
+        self.calibration = provider
+        return self
+
+    def set_odometry_provider(self, provider) -> "FastDEM":
+        self.odometry = provider
+        return self
+
+    def has_transform_provider(self) -> bool:
+        return self.calibration is not None and self.odometry is not None
+
+    def reset(self) -> None:
+        """Clear every layer to NaN."""
+        self.state = gridmap.clear_all(self.state)
+
+    # -- integration ---------------------------------------------------------
+    def integrate(self, cloud, T_base_sensor=None, T_world_base=None) -> bool:
+        """Integrate one scan. With explicit transforms the cloud is taken
+        as given; without, the providers are queried. Returns False and
+        drops the scan on any failure, like the reference."""
+        if T_base_sensor is None or T_world_base is None:
+            if not self.has_transform_provider():
+                log.error(
+                    "[FastDEM] Transform providers not set; use explicit "
+                    "transforms or set providers first."
+                )
+                return False
+            if cloud is None or cloud.empty():
+                log.warning("[FastDEM] Received empty or null cloud. Skipping...")
+                return False
+            if not cloud.frame_id:
+                log.error("[FastDEM] Input cloud has no frameId. Skipping...")
+                return False
+            T_base_sensor = self.calibration.get_extrinsic(cloud.frame_id)
+            if T_base_sensor is None:
+                log.warning(
+                    "[FastDEM] Calibration not available for '%s'. Skipping...",
+                    cloud.frame_id,
+                )
+                return False
+            T_world_base = self.odometry.get_pose_at(cloud.timestamp_ns)
+            if T_world_base is None:
+                log.warning(
+                    "[FastDEM] Odometry not available at %d. Skipping...",
+                    cloud.timestamp_ns,
+                )
+                return False
+        elif cloud is None or cloud.empty():
+            log.warning("[FastDEM] Received empty cloud. Skipping...")
+            return False
+
+        if (
+            self.auto_bucket
+            and cloud.valid_count >= 0
+            and pc.ladder_capacity(cloud.valid_count) < cloud.capacity * 0.75
+        ):
+            cloud = pc.compact_to_bucket(cloud)
+        if cloud.device != self.device:
+            cloud = cloud.to(self.device)
+
+        intensity = cloud.channels.get("intensity") if self.has_intensity else None
+        color_packed = None
+        if self.has_color and "color" in cloud.channels:
+            color_packed = pack_rgb(cloud.channels["color"])
+
+        # The polar-field bound assumes the base->sensor xy offset stays
+        # under the margin: widen it (one rebuild) before integrating.
+        T_bs_host = np.asarray(
+            T_base_sensor.cpu() if isinstance(T_base_sensor, torch.Tensor)
+            else T_base_sensor,
+            dtype=np.float32,
+        )
+        off = float(np.hypot(T_bs_host[0, 3], T_bs_host[1, 3]))
+        if off + 0.5 > self._window_margin:
+            log.warning(
+                "[FastDEM] base->sensor xy offset %.2f m exceeds the window "
+                "margin %.2f m; widening to %.2f m (rebuild).",
+                off, self._window_margin, off + 1.0,
+            )
+            self._window_margin = off + 1.0
+            self._rebuild()
+
+        T_bs = torch.as_tensor(T_bs_host, device=self.device)
+        T_wb = torch.as_tensor(
+            T_world_base, dtype=torch.float32, device=self.device
+        )
+        self.state, aux = self._step(
+            self.state, cloud.xyz, cloud.mask, T_bs, T_wb, intensity, color_packed
+        )
+        self.last_aux = aux
+        if self.on_preprocessed is not None:
+            self.on_preprocessed(aux)
+        if self.on_rasterized is not None:
+            self.on_rasterized(self.rasterized_cloud(aux))
+        return True
+
+    def rasterized_cloud(self, aux: IntegrateAux):
+        """One point per touched cell at (cell center, min_z)."""
+        x, y = self.geom.cell_centers(self.state.position)
+        return x, y, aux.obs.min_z, aux.obs.touched

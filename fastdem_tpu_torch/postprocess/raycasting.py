@@ -1,0 +1,295 @@
+"""Ghost-obstacle removal via log-odds visibility: the polar raycast (port of
+``fastdem_tpu/postprocess/raycasting.py``, the path the pipeline runs).
+
+All rays share one origin, so the minimum ray height at 2D distance d is
+origin_z + d * min(slope of rays alive at d):
+
+  1. one scatter-min of ray slopes into an (exit range bin, azimuth bin)
+     polar table (``polar_scatter_spec``; the rasterizer runs it);
+  2. the dense tail -- reverse cummin along range, in-cell fold, per-row
+     azimuth smears -- is K1 (``ops/polar_field.py``);
+  3. one lookup per cell at its (range, azimuth) (``resample_indices``).
+
+``apply_raycasting`` then adds observed evidence, resolves ghost cells and
+clears them, as the reference does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from fastdem_tpu_torch.numerics import fma_f32, recip_f32, sqrt_f32
+from fastdem_tpu_torch.grid.geometry import GridGeometry, floor_i32, to_i32
+from fastdem_tpu_torch.grid.gridmap import GridMapState, layers
+from fastdem_tpu_torch.ops import polar_field as k1
+
+_INF = float("inf")
+_PI = math.pi
+
+# Azimuth half-width factor of a cell's angular footprint; resample_indices
+# and _column_windows must use the same value (the exact-window fold relies
+# on it).
+AZ_HALF_WIDTH = 0.5
+
+
+def layer_fills() -> Dict[str, float]:
+    """Raycasting layers, created with the map."""
+    return {
+        layers.ghost_removal: np.nan,
+        layers.raycasting: np.nan,
+        layers.visibility_logodds: np.nan,
+    }
+
+
+def _clip_exit(
+    geom: GridGeometry,
+    position: torch.Tensor,
+    origin: torch.Tensor,
+    ends: torch.Tensor,
+) -> torch.Tensor:
+    """Liang-Barsky: t of the map-rect exit along origin->end, in [0, 1]."""
+    half_x = 0.5 * geom.rows * geom.resolution
+    half_y = 0.5 * geom.cols * geom.resolution
+    lo = torch.stack([position[0] - half_x, position[1] - half_y])
+    hi = torch.stack([position[0] + half_x, position[1] + half_y])
+    d = ends[:, :2] - origin[:2]
+    safe_d = torch.where(torch.abs(d) < 1e-12, 1e-12, d)
+    t_lo = (lo - origin[:2]) / safe_d
+    t_hi = (hi - origin[:2]) / safe_d
+    t_exit = torch.min(torch.maximum(t_lo, t_hi), dim=1).values
+    return torch.clamp(t_exit, 0.0, 1.0)
+
+
+def polar_dims(
+    geom: GridGeometry,
+    num_azimuth: int,
+    range_bin_factor: float,
+    max_range: Optional[float] = None,
+):
+    """Polar grid dims (A, R, dr); ``max_range`` bounds the range axis,
+    which otherwise spans the map diagonal."""
+    A = num_azimuth
+    dr = geom.resolution * range_bin_factor
+    diag = math.hypot(geom.rows, geom.cols) * geom.resolution
+    extent = diag if max_range is None else min(diag, max_range)
+    R = int(math.ceil(extent / dr)) + 2
+    return A, R, dr
+
+
+def polar_scatter_spec(
+    geom: GridGeometry,
+    position: torch.Tensor,
+    xyz: torch.Tensor,
+    ray_mask: torch.Tensor,
+    sensor_origin: torch.Tensor,
+    num_azimuth: int = 2048,
+    range_bin_factor: float = 0.5,
+    max_range: Optional[float] = None,
+):
+    """The polar slope-scatter inputs: (keys in [0, A*R] with A*R the dump
+    slot, slopes, table size A*R + 1). Table layout is [R, A]."""
+    A, R, dr = polar_dims(geom, num_azimuth, range_bin_factor, max_range)
+    dxy = xyz[:, :2] - sensor_origin[:2]
+    dz = xyz[:, 2] - sensor_origin[2]
+    len2d = sqrt_f32(fma_f32(dxy[:, 1], dxy[:, 1], dxy[:, 0] * dxy[:, 0]))
+    # Skip upward rays and degenerate 2D rays.
+    valid = ray_mask & (dz < 0.0) & (len2d >= 1e-4)
+
+    azim = torch.atan2(dxy[:, 1], dxy[:, 0])
+    abin = torch.clamp(
+        floor_i32((azim + _PI) * recip_f32(2 * _PI) * A), 0, A - 1
+    )
+    slope = dz / torch.clamp_min(len2d, 1e-12)
+    t_exit = _clip_exit(geom, position, sensor_origin, xyz)
+    d_exit = t_exit * len2d
+    # Round half to even, as the reference does.
+    rbin_exit = torch.clamp(
+        to_i32(torch.round(d_exit * recip_f32(dr))), 0, R - 1
+    )
+    key = torch.where(valid, rbin_exit * A + abin, A * R)
+    return key, torch.where(valid, slope, _INF), A * R + 1
+
+
+def _column_windows(
+    geom: GridGeometry, A: int, R: int, dr: float
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Static per-range-row azimuth windows: (level, shift) with level =
+    floor(log2(w)) and shift = w - 2^level. Host-side numpy, as in the
+    reference; ``column_windows`` puts them on the device."""
+    d = np.arange(R, dtype=np.float32) * dr
+    half_w = np.arctan2(geom.resolution * AZ_HALF_WIDTH, np.maximum(d, 1e-6))
+    w = np.clip(
+        np.ceil(half_w / (2 * np.pi / A) * 2.0).astype(np.int32) + 1,
+        1, A // 2,
+    )
+    lvl = np.floor(np.log2(np.maximum(w, 1))).astype(np.int32)
+    return lvl, (w - (1 << lvl)).astype(np.int32)
+
+
+def column_windows(
+    geom: GridGeometry,
+    num_azimuth: int,
+    range_bin_factor: float,
+    max_range: Optional[float],
+    device,
+) -> k1.ColumnWindows:
+    """``_column_windows`` of one polar geometry, on ``device``. Callers
+    compute it once per geometry and pass it to ``polar_smeared_field``."""
+    A, R, dr = polar_dims(geom, num_azimuth, range_bin_factor, max_range)
+    lvl, shift = _column_windows(geom, A, R, dr)
+    return k1.ColumnWindows.from_numpy(lvl, shift, device)
+
+
+def polar_smeared_field(
+    geom: GridGeometry,
+    sensor_origin: torch.Tensor,
+    scat_flat: torch.Tensor,
+    num_azimuth: int = 2048,
+    range_bin_factor: float = 0.5,
+    max_range: Optional[float] = None,
+    exact_window: bool = False,
+    impl: str = "auto",
+    windows: Optional[k1.ColumnWindows] = None,
+) -> torch.Tensor:
+    """Scattered [R*A] min slopes -> azimuth-smeared height field [R, A].
+
+    ``impl``: "auto" runs K1 on a CUDA tensor and its plain twin on a CPU
+    tensor; "pallas" is K1 and raises on a CPU tensor; "xla" is the plain
+    twin on any device. ``windows`` defaults to ``column_windows(...)``.
+    """
+    if impl not in ("xla", "pallas", "auto"):
+        raise ValueError(f"unknown polar_field_impl: {impl!r}")
+    A, R, dr = polar_dims(geom, num_azimuth, range_bin_factor, max_range)
+    if windows is None:
+        windows = column_windows(
+            geom, num_azimuth, range_bin_factor, max_range, scat_flat.device
+        )
+    nfold = max(1, int(math.ceil(1.0 / range_bin_factor)))
+    scat = scat_flat.reshape(R, A)
+    if impl == "pallas":
+        fn = k1.polar_field_cuda
+    elif impl == "xla":
+        fn = k1.polar_field_plain
+    else:
+        fn = k1.polar_field
+    return fn(scat, windows, sensor_origin, dr, nfold, exact_window)
+
+
+def _hypot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """hypot as the reference computes it: max * sqrt(fma(q, q, 1)) with
+    q = min / max."""
+    x, y = torch.abs(x), torch.abs(y)
+    idx_inf = torch.isposinf(x) | torch.isposinf(y)
+    hi, lo = torch.maximum(x, y), torch.minimum(x, y)
+    q = lo / torch.where(hi == 0, torch.ones_like(hi), hi)
+    out = torch.where(hi == 0, hi, hi * sqrt_f32(fma_f32(q, q, 1.0)))
+    return torch.where(idx_inf, _INF, out)
+
+
+def resample_indices(
+    geom: GridGeometry,
+    position: torch.Tensor,
+    sensor_origin: torch.Tensor,
+    num_azimuth: int = 2048,
+    range_bin_factor: float = 0.5,
+    max_range: Optional[float] = None,
+    window=None,
+):
+    """Per-cell (a0, a1, r_idx, in_range) lookups into the smeared field.
+    Cells beyond the field's range bound report in_range=False."""
+    if window is not None:
+        raise NotImplementedError(
+            "the windowed resample is not ported yet (ROADMAP section 1, item 10)"
+        )
+    A, R, dr = polar_dims(geom, num_azimuth, range_bin_factor, max_range)
+    cx, cy = geom.cell_centers(position)
+    ddx = cx - sensor_origin[0]
+    ddy = cy - sensor_origin[1]
+    dist = _hypot(ddx, ddy)
+    cell_az = torch.atan2(ddy, ddx)
+    inv_dr = recip_f32(dr)
+    # Far-edge range: for downward rays the in-cell minimum sits there.
+    r_idx = torch.clamp(to_i32((dist + geom.resolution * 0.5) * inv_dr), 0, R - 1)
+    d_cell = r_idx.to(torch.float32) * dr
+    half_w = torch.atan2(
+        torch.full_like(d_cell, geom.resolution * AZ_HALF_WIDTH),
+        torch.clamp_min(d_cell, 1e-6),
+    )
+    w_bins = torch.clamp(
+        to_i32(torch.ceil(half_w * recip_f32(2 * _PI / A) * 2.0)) + 1, 1, A // 2
+    )
+    lvl_cell = floor_i32(torch.log2(torch.clamp_min(w_bins, 1).to(torch.float32)))
+    w_pow = torch.bitwise_left_shift(torch.ones_like(lvl_cell), lvl_cell)
+    a_center = torch.clamp(
+        floor_i32((cell_az + _PI) * recip_f32(2 * _PI) * A), 0, A - 1
+    )
+    a0 = torch.remainder(a_center - w_bins // 2, A)
+    a1 = torch.remainder(a0 + w_bins - w_pow, A)
+    in_range = (dist + geom.resolution * 0.5) <= (R - 1) * dr
+    return a0, a1, r_idx, in_range
+
+
+def apply_raycasting(
+    geom: GridGeometry,
+    state: GridMapState,
+    sensor_origin: torch.Tensor,
+    cfg,
+    obs_count: torch.Tensor,
+    ray_min_touched: Tuple[torch.Tensor, torch.Tensor],
+    frame_nonempty=True,
+) -> GridMapState:
+    """Apply one scan's visibility update from the precomputed per-cell
+    observed-voxel counts and (min ray height, touched) fields.
+
+    ``cfg`` is a ``RaycastingConfig``. The reference's standalone forms
+    (computing the counts or the ray field here) are not ported.
+    """
+    origin_inside = geom.is_inside(state.position, sensor_origin[:2])
+
+    # 1. Observed evidence (add, then clamp).
+    obs_count_eff = torch.where(origin_inside, obs_count, 0.0)
+    add = obs_count_eff * cfg.log_odds_observed
+    lo = state.layers[layers.visibility_logodds]
+    lo_base = torch.where(torch.isnan(lo), 0.0, lo)
+    lo1 = torch.where(
+        add > 0.0, torch.clamp_max(lo_base + add, cfg.log_odds_max), lo
+    )
+
+    # 2. Per-cell min ray height; an all-masked frame keeps the previous
+    # diagnostic layer.
+    ray_min, ray_touched = ray_min_touched
+    ray_layer = torch.where(
+        frame_nonempty,
+        torch.where(ray_touched, ray_min, np.nan),
+        state.layers[layers.raycasting],
+    )
+    ray_min_cmp = torch.where(ray_touched, ray_min, _INF)
+
+    # 3. Resolve ghost cells.
+    elev = state.layers[layers.elevation]
+    conflict = (
+        ray_touched
+        & torch.isfinite(elev)
+        & (elev > ray_min_cmp + cfg.height_conflict_threshold)
+    )
+    lo2 = torch.where(
+        conflict,
+        torch.where(torch.isnan(lo1), 0.0, lo1) - cfg.log_odds_ghost,
+        lo1,
+    )
+    clear = conflict & (lo2 < cfg.clear_threshold)
+
+    state = state.replace_layers(
+        {layers.visibility_logodds: lo2, layers.raycasting: ray_layer}
+    )
+    cleared = {
+        k: torch.where(clear, np.nan, v) for k, v in state.layers.items()
+    }
+    cleared[layers.ghost_removal] = torch.where(
+        clear, 1.0, state.layers[layers.ghost_removal]
+    )
+    return GridMapState(layers=cleared, position=state.position)

@@ -1,0 +1,62 @@
+"""Package boundaries of the port, and ``chip_smoke.py`` without a card.
+
+``fastdem_tpu_torch`` imports torch and never JAX; ``chip_smoke.py`` must
+fail at once, and print no result, where CUDA is not available.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(ROOT, "fastdem_tpu_torch")
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys; import fastdem_tpu_torch as fd; "
+        "import fastdem_tpu_torch.ops.polar_field, fastdem_tpu_torch.interop; "
+        "fd.FastDEM(fd.GridGeometry.from_length(2.0, 2.0, 0.1), fd.Config(), device='cpu'); "
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'fastdem_tpu.')) or m == 'fastdem_tpu'); "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_jax_import_in_sources():
+    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.MULTILINE)
+    sources = []
+    for dirpath, _, files in os.walk(PACKAGE):
+        sources += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    sources.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(sources) > 10
+    for path in sources:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=60)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout + proc.stderr
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    """Alone in a directory, the script cannot find the port and fails."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        (tmp_path / "chip_smoke.py").write_text(f.read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=60)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout + proc.stderr
