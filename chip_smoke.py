@@ -1,21 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on a CUDA card and check it.
+"""Drive the PyTorch port's main paths once on a CUDA card and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; there is no CPU fallback):
-  1. device  -- the card's name and power limit (nvidia-smi).
-  2. build   -- build K1 (fastdem_tpu_torch/csrc/polar_field.cu) with nvcc.
-  3. K1      -- the kernel against its plain PyTorch twin on the card, at
-                the three polar-field shapes of the reference's kernel
-                test; kernel and plain medians at the flagship [515, 2048].
-  4. main    -- FastDEM on the card, flagship configuration (15x15 m LOCAL
-                map at 0.1 m, Kalman, LiDAR noise, polar raycast): 10 scans
-                of 30,000 points with a moving robot; K1 must launch once
-                per scan; heights are checked against the synthetic terrain.
-  5. parity  -- the same 10 scans through FastDEM on the CPU (plain twins),
-                every layer compared with the card's.
-  6. time    -- ms/scan over a chain of 64 scans, CUDA events.
+  1. device   -- the card's name and power limit (nvidia-smi).
+  2. build    -- build K1 (csrc/polar_field.cu) and K4 (csrc/resample.cu),
+                 one nvcc each, in parallel.
+  3. K1       -- the kernel against its plain PyTorch twin on the card at
+                 the three polar-field shapes of the reference's kernel
+                 test and the GLOBAL shape [962, 2048]; device times
+                 (torch.profiler) at the flagship and GLOBAL shapes.
+  4. K4       -- the per-cell lookup against its twin, one and two reads,
+                 at [515, 2048] x 150x150 cells and [962, 2048] x 484x484
+                 cells: bit-identical, same NaN set; device times at
+                 GLOBAL.
+  5. exact    -- polar_resample with exact_window (K1-exact + K4 one read)
+                 against the two-read form (K1 + K4 two reads) on a
+                 scattered LiDAR table: bitwise-equal heights and touched.
+  6. flagship -- FastDEM on the card (15x15 m LOCAL map at 0.1 m, Kalman,
+                 LiDAR noise, polar raycast): 10 scans of 30,000 points with
+                 a moving robot; K1 and K4 launch once per scan; heights
+                 against the synthetic terrain; every layer against the
+                 same session on the CPU.
+  7. global   -- the fixed-origin 200x200 m GLOBAL map at 0.1 m, range
+                 filter 20 m (windowed update, 484x484 window, polar field
+                 [962, 2048]), Kalman: 10 scans of 30,000 points over a
+                 moving robot; one K1 and one K4 launch per scan, no point
+                 outside the window, terrain check, CPU agreement.
+  8. window   -- windowed == full-map update on the card, bit for bit: a
+                 40x40 m GLOBAL map at 0.1 m, range 6 m, Kalman and P^2.
+  9. p2       -- the flagship configuration with the P^2 estimator, card
+                 against CPU, terrain check.
+ 10. time     -- ms/scan over 32-scan chains (CUDA events): GLOBAL Kalman,
+                 flagship P^2, flagship Kalman.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -36,14 +54,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 import fastdem_tpu_torch as fd  # noqa: E402
+from fastdem_tpu_torch.ops import cuda_build  # noqa: E402
 from fastdem_tpu_torch.ops import polar_field as k1  # noqa: E402
+from fastdem_tpu_torch.ops import resample as k4  # noqa: E402
 from fastdem_tpu_torch.postprocess import raycasting as raycast  # noqa: E402
 
 N_SCANS = 10
 N_POINTS = 30000
-CHAIN = 64
-# Scan xy spread (m): covers the whole 15x15 m map.
+CHAIN = 32
+# Scan xy spread (m): covers the whole 15x15 m flagship map.
 SPREAD = 10.0
+# GLOBAL: scans reach 18 m, inside the 20 m range filter.
+GLOBAL_SPREAD = 18.0
+GLOBAL_RANGE = 20.0
 NOISE_SIGMA = 0.01
 K1_ATOL = 4e-6
 # GPU vs CPU agreement: atan2 differs in the last ulp between the two
@@ -51,13 +74,16 @@ K1_ATOL = 4e-6
 PARITY_RTOL = 1e-5
 PARITY_ATOL = 1e-5
 PARITY_MIN_SHARE = 0.999
+# Terrain check: median |elevation - terrain| on mapped cells. The P^2
+# elevation is the 84% quantile marker, one noise sigma above the mean.
+TERRAIN_TOL = {"kalman": 0.01, "p2": 0.02}
 
 
 def terrain(x, y):
     return 0.2 * np.sin(0.8 * x) * np.cos(0.6 * y)
 
 
-def make_session(n_scans, seed):
+def make_session(n_scans, seed, spread=SPREAD, start=(0.0, 0.0), step=(0.137, -0.061)):
     """Sensor-frame scans over a static world terrain, with robot poses.
 
     ``bench.make_scans`` gives the scan layout (xy and noise) in the sensor
@@ -67,14 +93,14 @@ def make_session(n_scans, seed):
     import bench
 
     rng = np.random.default_rng(seed)
-    scans = bench.make_scans(n_scans, N_POINTS, rng, spread=SPREAD)
+    scans = bench.make_scans(n_scans, N_POINTS, rng, spread=spread)
     T_bs = np.eye(4, dtype=np.float32)
     T_bs[2, 3] = 1.0
     poses = []
     for k in range(n_scans):
         T_wb = np.eye(4, dtype=np.float32)
-        T_wb[0, 3] = 0.137 * k
-        T_wb[1, 3] = -0.061 * k
+        T_wb[0, 3] = start[0] + step[0] * k
+        T_wb[1, 3] = start[1] + step[1] * k
         xs = scans[k, :, 0].astype(np.float64)
         ys = scans[k, :, 1].astype(np.float64)
         noise = scans[k, :, 2] - (terrain(xs, ys) - 1.0)
@@ -85,22 +111,48 @@ def make_session(n_scans, seed):
     return scans, T_bs, poses
 
 
-def flagship_config():
+def flagship_config(est="kalman"):
     cfg = fd.Config()
-    cfg.mapping.estimation_type = fd.EstimationType.KALMAN
+    cfg.mapping.estimation_type = (
+        fd.EstimationType.P2_QUANTILE if est == "p2" else fd.EstimationType.KALMAN
+    )
     cfg.sensor_model.type = fd.SensorType.LIDAR
     cfg.raycasting.enabled = True
     return cfg
 
 
-def run_session(device, scans, T_bs, poses):
-    geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1)
-    mapper = fd.FastDEM(geom, flagship_config(), device=device)
+def global_config():
+    cfg = flagship_config()
+    cfg.mapping.mode = fd.MappingMode.GLOBAL
+    cfg.point_filter.range_max = GLOBAL_RANGE
+    return cfg
+
+
+def flagship_geom():
+    return fd.GridGeometry.from_length(15.0, 15.0, 0.1)
+
+
+def global_geom():
+    return fd.GridGeometry.from_length(200.0, 200.0, 0.1)
+
+
+def global_session_scans(n_scans, seed):
+    # The robot crosses the map's middle, 1.9 m per scan.
+    return make_session(n_scans, seed, spread=GLOBAL_SPREAD, start=(-12.0, 6.0),
+                        step=(1.7, -0.85))
+
+
+def run_session(device, geom, cfg, scans, T_bs, poses):
+    """FastDEM over the scans; also returns the per-scan out-of-window
+    counts (device tensors, read after the session)."""
+    mapper = fd.FastDEM(geom, cfg, device=device)
+    oow = []
     for k in range(len(poses)):
         cloud = fd.cloud.from_numpy(scans[k], frame_id="lidar", device=device)
         if not mapper.integrate(cloud, T_bs, poses[k]):
             raise RuntimeError(f"integrate refused scan {k}")
-    return geom, mapper
+        oow.append(mapper.last_aux.oow_points)
+    return mapper, oow
 
 
 def height_error(geom, mapper):
@@ -132,6 +184,52 @@ def compare_layers(ref_state, got_state):
     return out
 
 
+def check_parity(what, cpu_state, gpu_state):
+    worst = 1.0
+    for name, (nan_mis, val_mis, ncell) in compare_layers(cpu_state, gpu_state).items():
+        share = 1.0 - max(nan_mis, val_mis) / ncell
+        worst = min(worst, share)
+        print(f"{what} parity {name}: NaN-set mismatches {nan_mis}, value "
+              f"mismatches {val_mis} of {ncell}")
+    if worst < PARITY_MIN_SHARE:
+        raise AssertionError(f"{what}: GPU/CPU agreement {worst} < {PARITY_MIN_SHARE}")
+    print(f"{what} parity: worst layer agrees on {worst!r} of cells")
+
+
+def check_map(what, geom, mapper, est, min_cells):
+    for name, t in mapper.state.layers.items():
+        if tuple(t.shape) != geom.shape or t.dtype != torch.float32:
+            raise AssertionError(f"{what} layer {name}: {t.dtype} {tuple(t.shape)}")
+    mapped, med = height_error(geom, mapper)
+    print(f"{what}: layers f32{list(geom.shape)}, {mapped} mapped cells, "
+          f"median |elevation - terrain| {med!r} m")
+    if mapped <= min_cells or not med < TERRAIN_TOL[est]:
+        raise AssertionError(
+            f"{what} map fails the >{min_cells} cells / <{TERRAIN_TOL[est]} m check"
+        )
+
+
+def drive(what, device, geom, cfg, scans, T_bs, poses):
+    """One main-path run on the card with the launch counts set to 0 just
+    before it and read just after: (mapper, K1 launches, K4 launches)."""
+    torch.cuda.synchronize()
+    k1.launches = 0
+    k4.launches = 0
+    mapper, oow = run_session(device, geom, cfg, scans, T_bs, poses)
+    torch.cuda.synchronize()
+    l1, l4 = k1.launches, k4.launches
+    n = len(poses)
+    print(f"{what}: {n} scans, K1 launches {l1}, K4 launches {l4}")
+    if (l1, l4) != (n, n):
+        raise AssertionError(f"{what}: K1/K4 launched {l1}/{l4} times, want {n} each")
+    if oow[0] is not None:
+        total = int(torch.stack(oow).sum())
+        print(f"{what}: points outside the update window, all scans: {total}")
+        if total:
+            raise AssertionError(f"{what}: {total} points fell outside the window")
+    return mapper, l1, l4
+
+
 def cuda_median_ms(fn, reps):
     times = []
     for _ in range(reps):
@@ -145,18 +243,54 @@ def cuda_median_ms(fn, reps):
     return float(np.median(times))
 
 
+def device_ms(fn, reps):
+    """Device time per call of the kernels ``fn`` launches: the sum of the
+    CUDA kernel events of ``reps`` calls under torch.profiler, / reps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "device_time", None)
+            total += e.cuda_time if t is None else t
+    if total <= 0.0:
+        raise AssertionError("the profiler recorded no device time")
+    return total / reps / 1000.0
+
+
+def time_pair(what, fn_kernel, fn_plain, reps=200, plain_reps=50):
+    """(kernel, plain) device ms per call; prints them with the per-call
+    latency that CUDA events around one call see (host enqueue included)."""
+    for fn in (fn_kernel, fn_plain):
+        for _ in range(5):
+            fn()
+    torch.cuda.synchronize()
+    ms, plain_ms = device_ms(fn_kernel, reps), device_ms(fn_plain, plain_reps)
+    lat, plain_lat = cuda_median_ms(fn_kernel, reps), cuda_median_ms(fn_plain, plain_reps)
+    print(f"{what}: kernel {ms!r} ms, plain twin {plain_ms!r} ms (device time "
+          f"per call, torch.profiler); per-call latency kernel {lat!r} ms, plain "
+          f"{plain_lat!r} ms (median, CUDA events, host enqueue included)")
+    return ms, plain_ms
+
+
 def phase_k1():
-    """K1 against its plain twin at the reference test's three shapes."""
+    """K1 against its plain twin at the reference test's three shapes and
+    the GLOBAL shape; medians at the flagship and GLOBAL shapes."""
     dev = torch.device("cuda")
-    geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1)
     rng = np.random.default_rng(42)
     so = torch.tensor([0.07, -0.03, 1.2], dtype=torch.float32, device=dev)
     max_err = 0.0
-    timing = None
-    for num_az, rbf, maxr, exact in (
-        (2048, 0.25, 12.81, True),
-        (1024, 0.5, 9.0, True),
-        (2048, 0.25, 12.81, False),
+    timing = {}
+    for geom, num_az, rbf, maxr, exact, label in (
+        (flagship_geom(), 2048, 0.25, 12.81, True, "flagship"),
+        (flagship_geom(), 1024, 0.5, 9.0, True, None),
+        (flagship_geom(), 2048, 0.25, 12.81, False, None),
+        (global_geom(), 2048, 0.25, GLOBAL_RANGE * 1.1 + 2.0, True, "global"),
     ):
         A, R, dr = raycast.polar_dims(geom, num_az, rbf, maxr)
         tbl = rng.uniform(-2.0, 0.5, R * A).astype(np.float32)
@@ -177,23 +311,134 @@ def phase_k1():
         if err > K1_ATOL:
             raise AssertionError(f"K1 max |diff| {err} > {K1_ATOL}")
         max_err = max(max_err, err)
-        if timing is None:  # the flagship shape [515, 2048], exact window
-            def run_k1():
-                k1.polar_field_cuda(scat, win, so, dr, nfold, exact)
+        if label:
+            timing[label] = time_pair(
+                f"K1 time at [{R}, {A}], L2-warm input",
+                lambda: k1.polar_field_cuda(scat, win, so, dr, nfold, exact),
+                lambda: k1.polar_field_plain(scat, win, so, dr, nfold, exact),
+            )
+    return max_err, timing
 
-            def run_plain():
-                k1.polar_field_plain(scat, win, so, dr, nfold, exact)
 
-            for fn in (run_k1, run_plain):
-                for _ in range(5):
-                    fn()
+def phase_k4():
+    """K4 against its plain twin, both forms, at the flagship and GLOBAL
+    shapes: bit-identical heights, the same touched and NaN sets."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(43)
+    timing = {}
+    max_err = 0.0
+    for R, A, cells in ((515, 2048, 150), (962, 2048, 484)):
+        field = rng.uniform(-2.0, 0.5, (R, A)).astype(np.float32)
+        field[rng.random((R, A)) < 0.97] = np.inf
+        field[rng.random((R, A)) < 0.001] = np.nan
+        shape = (cells, cells)
+        fld = torch.tensor(field, device=dev)
+        a0 = torch.tensor(rng.integers(0, A, shape).astype(np.int32), device=dev)
+        a1 = torch.tensor(rng.integers(0, A, shape).astype(np.int32), device=dev)
+        r = torch.tensor(rng.integers(0, R, shape).astype(np.int32), device=dev)
+        in_range = torch.tensor(rng.random(shape) < 0.9, device=dev)
+        for second in (None, a1):
+            reads = 1 if second is None else 2
+            h, t = k4.resample_cuda(fld, a0, second, r, in_range)
+            h_ref, t_ref = k4.resample_plain(fld, a0, second, r, in_range)
             torch.cuda.synchronize()
-            ms = cuda_median_ms(run_k1, 200)
-            plain_ms = cuda_median_ms(run_plain, 50)
-            timing = (ms, plain_ms)
-            print(f"K1 time at [{R}, {A}]: kernel {ms!r} ms, plain twin "
-                  f"{plain_ms!r} ms (median, CUDA events, L2-warm input)")
-    return (max_err,) + timing
+            h_np, h_ref_np = h.cpu().numpy(), h_ref.cpu().numpy()
+            same_bits = np.array_equal(h_np.view(np.int32), h_ref_np.view(np.int32))
+            same_nan = np.array_equal(np.isnan(h_np), np.isnan(h_ref_np))
+            same_touched = torch.equal(t, t_ref)
+            print(f"K4 [R={R}, A={A}] {cells}x{cells} cells, {reads} read(s): "
+                  f"bit-identical {same_bits}, same NaN set {same_nan}, same "
+                  f"touched {same_touched} ({int(t.sum())} touched)")
+            if not (same_bits and same_nan and same_touched):
+                raise AssertionError("K4 differs from its plain twin")
+            fin = np.isfinite(h_ref_np)
+            if fin.any():
+                max_err = max(max_err, float(np.max(np.abs(h_np[fin] - h_ref_np[fin]))))
+            if R == 962:
+                timing[reads] = time_pair(
+                    f"K4 time at [{R}, {A}] x {cells}x{cells} cells, {reads} "
+                    "read(s), L2-warm field",
+                    lambda: k4.resample_cuda(fld, a0, second, r, in_range),
+                    lambda: k4.resample_plain(fld, a0, second, r, in_range),
+                )
+    return max_err, timing
+
+
+def phase_exact_window(dev="cuda"):
+    """exact_window (one read) == two reads, on the card."""
+    dev = torch.device(dev)
+    geom = flagship_geom()
+    scans, _, _ = make_session(1, seed=5)
+    xyz = torch.tensor(scans[0], device=dev)
+    pos = torch.tensor([0.2, -0.1], device=dev)
+    origin = torch.tensor([0.3, -0.2, 1.0], device=dev)
+    polar = (2048, 0.25, 12.81)
+    key, vals, size = raycast.polar_scatter_spec(
+        geom, pos, xyz, torch.ones(xyz.shape[0], dtype=torch.bool, device=dev),
+        origin, *polar,
+    )
+    table = torch.full((size,), float("inf"), device=dev)
+    table = table.scatter_reduce_(0, key.long(), vals, "amin")[: size - 1]
+    h2, t2 = raycast.polar_resample(geom, pos, origin, table, *polar, exact_window=False)
+    h1, t1 = raycast.polar_resample(geom, pos, origin, table, *polar, exact_window=True)
+    same = torch.equal(t1, t2) and np.array_equal(h1.cpu().numpy(), h2.cpu().numpy(),
+                                                  equal_nan=True)
+    print(f"exact_window one read vs two reads on the card: {int(t1.sum())} "
+          f"touched cells, bitwise equal {same}")
+    if not same or t1.sum() < 10000:
+        raise AssertionError("exact_window and two-read resample differ on the card")
+
+
+def phase_window_equals_full(dev="cuda"):
+    """The windowed update equals the full-map update on the card."""
+    dev = torch.device(dev)
+    geom = fd.GridGeometry.from_length(40.0, 40.0, 0.1)
+    scans, T_bs, poses = make_session(5, seed=9, spread=5.8, start=(-4.0, 1.0),
+                                      step=(1.3, 0.0))
+    for est in ("kalman", "p2"):
+        cfg = flagship_config(est)
+        cfg.mapping.mode = fd.MappingMode.GLOBAL
+        cfg.point_filter.range_max = 6.0
+        states = []
+        for window_update in (None, False):
+            step = fd.build_integrate(geom, cfg, window_update=window_update, device=dev)
+            s = fd.create_map_state(geom, cfg, device=dev)
+            T_bs_d = torch.tensor(T_bs, device=dev)
+            for k in range(len(poses)):
+                s, aux = step(s, torch.tensor(scans[k], device=dev),
+                              torch.ones(N_POINTS, dtype=torch.bool, device=dev),
+                              T_bs_d, torch.tensor(poses[k], device=dev))
+            if (aux.oow_points is None) != (window_update is False):
+                raise AssertionError("the windowed update did not engage as built")
+            states.append(s)
+        differ = [k for k in states[0].layers if not np.array_equal(
+            states[0].layers[k].cpu().numpy().view(np.int32),
+            states[1].layers[k].cpu().numpy().view(np.int32))]
+        cells = int((states[0].layers["n_points"] > 0).sum())
+        print(f"windowed == full on the card, {est}: {len(states[0].layers)} layers, "
+              f"{cells} observed cells, layers differing bitwise: {differ}")
+        if differ or cells < 5000:
+            raise AssertionError(f"windowed update differs from full-map ({est}): {differ}")
+
+
+def chain_ms(geom, cfg, seed, session_fn):
+    """ms/scan over a CHAIN-scan chain through FastDEM.integrate."""
+    scans, T_bs, poses = session_fn(CHAIN + 8, seed)
+    clouds = [fd.cloud.from_numpy(scans[k], frame_id="lidar", device="cuda")
+              for k in range(CHAIN + 8)]
+    timer = fd.FastDEM(geom, cfg, device="cuda")
+    for k in range(8):  # warm-up
+        timer.integrate(clouds[k], T_bs, poses[k])
+    timer.reset()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for k in range(8, CHAIN + 8):
+        timer.integrate(clouds[k], T_bs, poses[k])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / CHAIN
 
 
 def main() -> int:
@@ -218,77 +463,90 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
+    cuda_build.build(k1.SOURCE, k4.SOURCE)
     k1.library()
-    build_s = time.perf_counter() - t0
-    print(f"K1 build+load: {build_s!r} s ({'built' if k1.build_log else 'cached'})")
-    if k1.build_log:
-        print(k1.build_log.strip())
+    k4.library()
+    print(f"K1 + K4 build+load: {time.perf_counter() - t0!r} s wall (parallel nvcc)")
+    for src in (k1.SOURCE, k4.SOURCE):
+        secs = cuda_build.build_seconds.get(src.name)
+        print(f"{src.name}: " + (f"built in {secs!r} s" if secs is not None else "cached"))
+        if src.name in cuda_build.build_logs:
+            print(cuda_build.build_logs[src.name].strip())
 
-    # ---- 3. K1 vs plain twin ----
-    max_err, k1_ms, plain_ms = phase_k1()
+    # ---- 3.-5. kernels against their twins ----
+    k1_err, k1_ms = phase_k1()
+    k4_err, k4_ms = phase_k4()
+    phase_exact_window()
     torch.cuda.synchronize()
 
-    # ---- 4. main path on the card ----
+    launches = {"K1": 0, "K4": 0}
+
+    def add_launches(l1, l4):
+        launches["K1"] += l1
+        launches["K4"] += l4
+
+    # ---- 6. flagship main path, and the same scans on the CPU ----
+    geom = flagship_geom()
     scans, T_bs, poses = make_session(N_SCANS, seed=7)
-    k1.launches = 0
-    geom, gpu = run_session("cuda", scans, T_bs, poses)
-    torch.cuda.synchronize()
-    main_launches = k1.launches
-    print(f"main path: {N_SCANS} scans on {kind}, K1 launches {main_launches}")
-    if main_launches != N_SCANS:
-        raise AssertionError(f"K1 launched {main_launches} times, want {N_SCANS}")
-    mapped, med = height_error(geom, gpu)
-    print(f"main path: {mapped} mapped cells, median |elevation - terrain| {med!r} m")
-    if mapped <= 17000 or not med < 0.01:
-        raise AssertionError("main path map fails the >17K cells / <0.01 m check")
-    for name, t in gpu.state.layers.items():
-        if t.shape != geom.shape or t.dtype != torch.float32:
-            raise AssertionError(f"layer {name}: {t.dtype} {tuple(t.shape)}")
+    gpu, l1, l4 = drive("flagship", "cuda", geom, flagship_config(), scans, T_bs, poses)
+    add_launches(l1, l4)
+    check_map("flagship", geom, gpu, "kalman", 17000)
+    cpu, _ = run_session("cpu", geom, flagship_config(), scans, T_bs, poses)
+    check_parity("flagship", cpu.state, gpu.state)
 
-    # ---- 5. GPU against CPU ----
-    _, cpu = run_session("cpu", scans, T_bs, poses)
-    worst = 1.0
-    for name, (nan_mis, val_mis, ncell) in compare_layers(cpu.state, gpu.state).items():
-        share = 1.0 - max(nan_mis, val_mis) / ncell
-        worst = min(worst, share)
-        print(f"parity {name}: NaN-set mismatches {nan_mis}, value mismatches "
-              f"{val_mis} of {ncell}")
-    if worst < PARITY_MIN_SHARE:
-        raise AssertionError(f"GPU/CPU agreement {worst} < {PARITY_MIN_SHARE}")
-    print(f"parity: worst layer agrees on {worst!r} of cells")
+    # ---- 7. GLOBAL 200 m windowed map ----
+    ggeom = global_geom()
+    gscans, gT_bs, gposes = global_session_scans(N_SCANS, seed=17)
+    ggpu, l1, l4 = drive("global", "cuda", ggeom, global_config(), gscans, gT_bs, gposes)
+    add_launches(l1, l4)
+    check_map("global", ggeom, ggpu, "kalman", 80000)
+    gcpu, _ = run_session("cpu", ggeom, global_config(), gscans, gT_bs, gposes)
+    check_parity("global", gcpu.state, ggpu.state)
+    del gcpu
 
-    # ---- 6. time ----
-    chain_scans, _, chain_poses = make_session(CHAIN, seed=11)
-    clouds = [
-        fd.cloud.from_numpy(chain_scans[k], frame_id="lidar", device="cuda")
-        for k in range(CHAIN)
-    ]
-    timer = fd.FastDEM(geom, flagship_config(), device="cuda")
-    for k in range(8):  # warm-up
-        timer.integrate(clouds[k], T_bs, chain_poses[k])
-    timer.reset()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for k in range(CHAIN):
-        timer.integrate(clouds[k], T_bs, chain_poses[k])
-    end.record()
-    end.synchronize()
-    ms_scan = start.elapsed_time(end) / CHAIN
-    print(f"flagship: {ms_scan!r} ms/scan over a {CHAIN}-scan chain "
-          f"(FastDEM.integrate, CUDA events) on {card}")
+    # ---- 8. windowed == full on the card ----
+    phase_window_equals_full()
 
-    print(json.dumps({"kernels": [{
-        "name": "polar_field (K1)",
-        "route": "cuda",
-        "source": "fastdem_tpu_torch/csrc/polar_field.cu",
-        "replaces": "fastdem_tpu/ops/pallas_polar.py:49",
-        "launches": main_launches,
-        "max_abs_err": max_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # ---- 9. P^2 flagship ----
+    pgpu, l1, l4 = drive("p2 flagship", "cuda", geom, flagship_config("p2"), scans,
+                         T_bs, poses)
+    add_launches(l1, l4)
+    check_map("p2 flagship", geom, pgpu, "p2", 17000)
+    pcpu, _ = run_session("cpu", geom, flagship_config("p2"), scans, T_bs, poses)
+    check_parity("p2 flagship", pcpu.state, pgpu.state)
+
+    # ---- 10. time ----
+    for what, g, cfg, seed, fn in (
+        ("global kalman", ggeom, global_config(), 19, global_session_scans),
+        ("flagship p2", geom, flagship_config("p2"), 11, make_session),
+        ("flagship kalman", geom, flagship_config(), 11, make_session),
+    ):
+        ms = chain_ms(g, cfg, seed, lambda n, s, fn=fn: fn(n, s))
+        print(f"{what}: {ms!r} ms/scan over a {CHAIN}-scan chain "
+              f"(FastDEM.integrate, CUDA events) on {card}")
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "polar_field (K1)",
+            "route": "cuda",
+            "source": "fastdem_tpu_torch/csrc/polar_field.cu",
+            "replaces": "fastdem_tpu/ops/pallas_polar.py:49",
+            "launches": launches["K1"],
+            "max_abs_err": k1_err,
+            "ms": k1_ms["flagship"][0],
+            "plain_ms": k1_ms["flagship"][1],
+        },
+        {
+            "name": "resample (K4)",
+            "route": "cuda",
+            "source": "fastdem_tpu_torch/csrc/resample.cu",
+            "replaces": "fastdem_tpu/ops/pallas_resample.py:36",
+            "launches": launches["K4"],
+            "max_abs_err": k4_err,
+            "ms": k4_ms[1][0],
+            "plain_ms": k4_ms[1][1],
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

@@ -22,9 +22,11 @@
 //     lvl[r] circular roll-min doublings h[a] = min(h[a], h[(a + 2^k) % A]),
 //     then one more at each set bit of shift[r]. The window opens to the
 //     right, like jnp.roll(x, -(1 << k)) in the reference.
-// min is exact, so every pass is bit-identical to the reference's; the one
-// affine evaluation uses __fmul_rn / __fadd_rn (no FMA contraction), so
-// the result equals the plain PyTorch twin bit for bit.
+// min is exact, so every pass is bit-identical to the reference's. The one
+// affine evaluation is the reference's fused multiply-add z0 + m * d_r,
+// computed as the plain twin computes it (numerics.fma_f32): the product
+// exactly in double, one double add, one rounding to float. So the result
+// equals the plain PyTorch twin bit for bit.
 //
 // What bounds it: memory, not arithmetic. The flagship field is [515, 2048]
 // f32 = 4.2 MB; the kernel reads scat once and reads and writes the field
@@ -62,7 +64,9 @@ __global__ void polar_column_kernel(const float* __restrict__ scat,
     const size_t i = (size_t)r * A + a;
     m = min_nan(m, scat[i]);
     const float d_r = __fmul_rn((float)r, dr);
-    out[i] = isfinite(m) ? __fadd_rn(z0, __fmul_rn(m, d_r)) : INFINITY;
+    out[i] = isfinite(m) ? __double2float_rn(__dadd_rn(
+                               __dmul_rn((double)m, (double)d_r), (double)z0))
+                         : INFINITY;
   }
 
   float win[kNfoldMax];

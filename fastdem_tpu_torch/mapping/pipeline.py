@@ -1,6 +1,6 @@
 """The FastDEM pipeline: preprocess -> map update -> estimate -> raycast
-(port of ``fastdem_tpu/mapping/pipeline.py``, non-windowed LOCAL / GLOBAL
-path with the Kalman estimator).
+(port of ``fastdem_tpu/mapping/pipeline.py``: LOCAL and GLOBAL maps, full
+or windowed, with the Kalman or the P^2 estimator).
 
 ``build_integrate(geom, cfg, device=...)`` returns the per-scan step
 
@@ -9,9 +9,15 @@ path with the Kalman estimator).
 
 on tensors on one device. ``FastDEM`` is the stateful facade. Per scan,
 phase A transforms the points, attaches the LiDAR z-variance, filters,
-rasterizes (with the polar slope scatter riding along) and realizes the
-polar ray field with K1; phase B moves the LOCAL map, runs the Kalman
-update, min/max, obstacle and the raycast visibility update.
+rasterizes (with the polar slope scatter riding along), realizes the
+polar ray field with K1 and looks it up per cell with K4; phase B moves
+the LOCAL map, runs the estimator update, min/max, obstacle and the
+raycast visibility update.
+
+On maps larger than the scan's reach, the rasterizer's tables and the
+whole map update run on a sensor-centred window of the map and are
+written back (``window_update``); the window's top-left cell stays on the
+device, so no step reads it back to the host.
 
 Configurations the port does not run yet raise ``NotImplementedError``
 naming their ROADMAP item; none falls back to another computation.
@@ -36,16 +42,18 @@ from fastdem_tpu_torch.grid import gridmap
 from fastdem_tpu_torch.grid.geometry import GridGeometry
 from fastdem_tpu_torch.grid.gridmap import GridMapState, layers
 from fastdem_tpu_torch.mapping import kalman as kalman_est
+from fastdem_tpu_torch.mapping import p2 as p2_est
 from fastdem_tpu_torch.mapping import rasterize as raster
+from fastdem_tpu_torch.ops import resample as k4
 from fastdem_tpu_torch.postprocess import raycasting as raycast
 from fastdem_tpu_torch.sensors.models import create_sensor_model
 
 log = logging.getLogger("fastdem_tpu_torch")
 
 
-def _not_ported(what: str, item: str):
+def _not_ported(what: str, where: str):
     return NotImplementedError(
-        f"{what} is not ported to fastdem_tpu_torch yet (ROADMAP section 1, {item})"
+        f"{what} is not ported to fastdem_tpu_torch yet (ROADMAP {where})"
     )
 
 
@@ -55,8 +63,6 @@ def _check_config(cfg: Config) -> None:
             "fastdem_tpu_torch takes its own Config (fastdem_tpu_torch.config); "
             f"got {type(cfg)!r}"
         )
-    if cfg.mapping.estimation_type == EstimationType.P2_QUANTILE:
-        raise _not_ported("the P2 quantile estimator", "item 9")
 
 
 @dataclasses.dataclass
@@ -67,10 +73,16 @@ class IntegrateAux:
     world_mask: torch.Tensor  # surviving-point mask after filters
     z_var: torch.Tensor  # world z-variance per point
     obs: raster.CellObservations  # rasterized per-cell observations
+    # Surviving in-map points the update window missed (None when the
+    # windowed update is off). Nonzero means the base->sensor offset
+    # exceeded the built window margin and points were dropped.
+    oow_points: Optional[torch.Tensor] = None
 
 
 def estimator_layer_fills(cfg: Config) -> Dict[str, float]:
     _check_config(cfg)
+    if cfg.mapping.estimation_type == EstimationType.P2_QUANTILE:
+        return p2_est.layer_fills()
     return kalman_est.layer_fills()
 
 
@@ -108,7 +120,11 @@ def create_map_state(
 
 
 def _estimate(state: GridMapState, cfg: Config, obs: raster.CellObservations):
-    """Estimator update + bounds per touched cell (Kalman)."""
+    """Estimator update + bounds per touched cell."""
+    if cfg.mapping.estimation_type == EstimationType.P2_QUANTILE:
+        return p2_est.estimate(
+            state, cfg.mapping.p2, obs.min_z, obs.min_z_var, obs.touched
+        )
     return kalman_est.update(
         state, cfg.mapping.kalman, obs.min_z, obs.min_z_var, obs.touched
     )
@@ -170,6 +186,52 @@ def _update_color(state: GridMapState, obs: raster.CellObservations):
     )
 
 
+class _Window:
+    """The wr x wc block of a map whose top-left cell is (r0, c0), int32
+    device scalars. Reads and writes index with device vectors (one gather
+    or one index_put each), so neither costs a host sync."""
+
+    def __init__(self, r0: torch.Tensor, c0: torch.Tensor, wr: int, wc: int):
+        dev = r0.device
+        rows = (r0 + torch.arange(wr, dtype=torch.int32, device=dev)).long()
+        cols = (c0 + torch.arange(wc, dtype=torch.int32, device=dev)).long()
+        self.index = (rows[:, None], cols[None, :])
+
+    def read(self, layer: torch.Tensor) -> torch.Tensor:
+        return layer[self.index]
+
+    def write_(self, layer: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+        """Write ``values`` into the block of ``layer``, in place."""
+        return layer.index_put_(self.index, values)
+
+    def expand(self, geom: GridGeometry, values: torch.Tensor, fill) -> torch.Tensor:
+        """A full-map tensor holding ``fill`` outside the block, ``values``
+        in it."""
+        full = torch.full(geom.shape, fill, dtype=values.dtype, device=values.device)
+        return self.write_(full, values)
+
+
+def _expand_obs(
+    geom: GridGeometry, obs: raster.CellObservations, win: _Window
+) -> raster.CellObservations:
+    """Window-shaped observations expanded to the full map (NaN / False / 0
+    outside the window), for the aux payload."""
+
+    def put(f, fill):
+        return None if f is None else win.expand(geom, f, fill)
+
+    return raster.CellObservations(
+        min_z=put(obs.min_z, np.nan),
+        min_z_var=put(obs.min_z_var, np.nan),
+        max_z=put(obs.max_z, np.nan),
+        touched=put(obs.touched, False),
+        max_intensity=put(obs.max_intensity, np.nan),
+        color=put(obs.color, np.nan),
+        voxel_count=put(obs.voxel_count, 0.0),
+        extra=obs.extra,
+    )
+
+
 def build_integrate(
     geom: GridGeometry,
     cfg: Config,
@@ -197,7 +259,9 @@ def build_integrate(
     ``xyz`` is the sensor-frame cloud (f32[N, 3]); transforms are 4x4 f32.
     The arguments mean what they mean in the reference; ``polar_field_impl``
     "auto" runs K1 on CUDA and its plain twin on the CPU, "pallas" is K1
-    only and "xla" the plain twin only.
+    only and "xla" the plain twin only. ``window_update`` None engages the
+    windowed update where the window is at most half the map, False keeps
+    the full-map update.
     """
     dev = resolve_device(device)
     phase_a, phase_b, moved_position = _build_phases(
@@ -218,8 +282,13 @@ def build_integrate(
         )
         pa = phase_a(position, xyz, mask, T_bs, T_wb, intensity, color_packed)
         state = phase_b(state, T_wb, torch.any(mask), pa)
-        obs, _ray, _origin, xyz_world, keep, z_var = pa
-        aux = IntegrateAux(world_xyz=xyz_world, world_mask=keep, z_var=z_var, obs=obs)
+        obs, _ray, _origin, xyz_world, keep, z_var, win, oow = pa
+        if win is not None:
+            obs = _expand_obs(geom, obs, win)
+        aux = IntegrateAux(
+            world_xyz=xyz_world, world_mask=keep, z_var=z_var, obs=obs,
+            oow_points=oow,
+        )
         return state, aux
 
     return integrate
@@ -258,11 +327,14 @@ def _build_phases(
     if scatter_mode not in ("rows", "packed", "twophase", "sort"):
         raise ValueError(f"unknown scatter_mode: {scatter_mode!r}")
     if scatter_mode != "rows":
-        raise _not_ported(f"scatter_mode={scatter_mode!r}", "the scatter-mode note after item 19")
+        raise _not_ported(
+            f"scatter_mode={scatter_mode!r}",
+            "section 1, the scatter-mode note after item 19",
+        )
     if spmd_blocks is not None:
-        raise _not_ported("spmd_blocks (sharded maps)", "item 19")
+        raise _not_ported("spmd_blocks (sharded maps)", "section 1, item 19")
     if cfg.raycasting.enabled and cfg.raycasting.method == "sampled":
-        raise _not_ported('raycasting.method="sampled"', "item 13")
+        raise _not_ported('raycasting.method="sampled"', "section 1, item 13")
     sensor = create_sensor_model(cfg.sensor_model)
     pf = cfg.point_filter
     local_mode = cfg.mapping.mode == MappingMode.LOCAL
@@ -282,8 +354,12 @@ def _build_phases(
         ):
             ray_max_range = local_bound
 
-    # The reference's update window (engaged when the point filter's range
-    # bound covers at most half the map) is not ported.
+    # Update window: every cell a scan can touch lies within the point
+    # filter's range bound (plus the base->sensor margin) of the sensor, so
+    # the rasterizer's tables and the whole map update run on a window of
+    # ~2 * bound around it, engaged when the window is at most half the
+    # map. Results are identical to the full-map update. The bound derives
+    # from the point filter only, never from raycasting.max_range.
     upd_bound = (
         float(pf.range_max) * 1.1 + window_margin if pf.range_max < 1e6 else None
     )
@@ -293,17 +369,22 @@ def _build_phases(
     else:
         upd_wr, upd_wc = geom.rows, geom.cols
     windowed = window_update is not False and 2 * upd_wr * upd_wc <= geom.num_cells
-    if windowed:
-        raise _not_ported("the windowed map update", "item 10")
-    if geom.num_cells > (1 << 19):
+    eff_cells = upd_wr * upd_wc if windowed else geom.num_cells
+    if eff_cells > (1 << 19):
         raise _not_ported(
-            "the rows->packed rasterizer switch above 2^19 cells", "item 10"
+            "the rows->packed rasterizer switch above 2^19 cells of an "
+            "unwindowed map or window",
+            "section 3, the rows->packed note",
         )
     if cfg.raycasting.enabled:
+        # The per-cell lookups scale with the map: on maps larger than the
+        # ray range, only a sensor-centred window is resampled (the update
+        # window when that is engaged).
         if ray_max_range is not None:
             wcells = int(math.ceil(2.0 * ray_max_range / geom.resolution)) + 4
-            if (min(geom.rows, wcells), min(geom.cols, wcells)) != geom.shape:
-                raise _not_ported("the windowed ray-field resample", "item 10")
+            ray_wr, ray_wc = min(geom.rows, wcells), min(geom.cols, wcells)
+        else:
+            ray_wr, ray_wc = geom.shape
         impl = (
             polar_field_impl
             if polar_field_impl is not None
@@ -320,6 +401,14 @@ def _build_phases(
             (target_xy - position) * recip_f32(res)
         ).to(torch.int32)
         return position + delta.to(torch.float32) * res
+
+    def window_at(position, sensor_origin, wr, wc):
+        """Top-left cell of the wr x wc window centred on the sensor,
+        clipped into the map (int32 device scalars)."""
+        sr, sc, _ = geom.index_of(position, sensor_origin[:2])
+        r0 = torch.clamp(torch.clamp(sr, 0, geom.rows) - wr // 2, 0, geom.rows - wr)
+        c0 = torch.clamp(torch.clamp(sc, 0, geom.cols) - wc // 2, 0, geom.cols - wc)
+        return r0, c0
 
     def phase_a(position, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
         # ---- 1. Preprocess ----
@@ -339,10 +428,25 @@ def _build_phases(
         xyz_world = tfm.transform_points(xyz_base, T_wb)
         sensor_origin = T_ws[:3, 3]
 
-        # ---- 2. Rasterize, with the polar slope scatter and the ray-field
-        # lookups riding along ----
+        # ---- 2. The sensor-centred update window ----
+        upd_window = None
+        win = None
+        oow_points = None
+        if windowed:
+            ur0, uc0 = window_at(position, sensor_origin, upd_wr, upd_wc)
+            upd_window = (ur0, uc0, upd_wr, upd_wc)
+            win = _Window(*upd_window)
+            # Surviving in-map points the window misses would be dropped:
+            # count them, so the facade can warn.
+            pr, pc_, in_map = geom.index_of(position, xyz_world[:, :2])
+            in_win = (
+                (pr >= ur0) & (pr < ur0 + upd_wr) & (pc_ >= uc0) & (pc_ < uc0 + upd_wc)
+            )
+            oow_points = torch.sum(keep & in_map & ~in_win).to(torch.int32)
+
+        # ---- 3. Rasterize, with the polar slope scatter riding along ----
         extra = None
-        rider = None
+        ray_window = None
         if cfg.raycasting.enabled:
             origin_inside = geom.is_inside(position, sensor_origin[:2])
             extra = raycast.polar_scatter_spec(
@@ -350,25 +454,16 @@ def _build_phases(
                 sensor_origin, ray_num_azimuth, ray_range_bin_factor,
                 ray_max_range,
             )
+            if upd_window is not None:
+                ray_window = upd_window
+            elif (ray_wr, ray_wc) != geom.shape:
+                r0, c0 = window_at(position, sensor_origin, ray_wr, ray_wc)
+                ray_window = (r0, c0, ray_wr, ray_wc)
             a0, a1, r_idx, ray_in_range = raycast.resample_indices(
                 geom, position, sensor_origin,
                 ray_num_azimuth, ray_range_bin_factor, ray_max_range,
+                window=ray_window,
             )
-            # [R, A] field layout: flat = r * A + a.
-            flat0 = (r_idx * ray_num_azimuth + a0).reshape(-1)
-            if ray_exact_window:
-                flat_idx = flat0
-            else:
-                flat1 = (r_idx * ray_num_azimuth + a1).reshape(-1)
-                flat_idx = torch.cat([flat0, flat1])
-
-            def rider(polar_table):
-                smeared = raycast.polar_smeared_field(
-                    geom, sensor_origin, polar_table,
-                    ray_num_azimuth, ray_range_bin_factor, ray_max_range,
-                    exact_window=ray_exact_window, impl=impl, windows=windows,
-                )
-                return smeared.reshape(-1), flat_idx
 
         obs = raster.rasterize_scatter_rows(
             geom,
@@ -380,26 +475,33 @@ def _build_phases(
             color_packed=color_packed,
             with_voxel_count=cfg.raycasting.enabled,
             extra_min_scatter=extra,
-            phase_gather_rider=rider,
             voxel_count_mode=voxel_count_mode,
+            window=upd_window,
         )
 
-        # ---- 3. Per-cell min ray height from the field lookups ----
+        # ---- 4. The ray field (K1) and its per-cell lookup (K4); with
+        # exact_window one read per cell covers the whole azimuth window ----
         ray = None
         if cfg.raycasting.enabled:
-            ncell = geom.num_cells
-            h_cell = obs.extra[:ncell].reshape(geom.shape)
-            if not ray_exact_window:
-                h_cell = torch.minimum(h_cell, obs.extra[ncell:].reshape(geom.shape))
-            ray_touched = torch.isfinite(h_cell) & ray_in_range
-            ray_min = torch.where(ray_touched, h_cell, np.nan)
+            smeared = raycast.polar_smeared_field(
+                geom, sensor_origin, obs.extra,
+                ray_num_azimuth, ray_range_bin_factor, ray_max_range,
+                exact_window=ray_exact_window, impl=impl, windows=windows,
+            )
+            ray_min, ray_touched = k4.resample(
+                smeared, a0, None if ray_exact_window else a1, r_idx, ray_in_range
+            )
+            if ray_window is not None and upd_window is None:
+                # Only the ray window is active: the full-map update takes
+                # full-map fields.
+                ray_win = _Window(*ray_window)
+                ray_min = ray_win.expand(geom, ray_min, np.nan)
+                ray_touched = ray_win.expand(geom, ray_touched, False)
             ray = (ray_min, ray_touched)
-        return obs, ray, sensor_origin, xyz_world, keep, z_var
+        return obs, ray, sensor_origin, xyz_world, keep, z_var, win, oow_points
 
-    def phase_b(state, T_wb, frame_nonempty, pa):
-        obs, ray, sensor_origin, _xyz_world, _keep, _z_var = pa
-        if local_mode:
-            state = gridmap.move(geom, state, T_wb[:2, 3])
+    def update_layers(state, obs, ray, sensor_origin, frame_nonempty):
+        """The map update on a state whose layer shapes match ``obs``."""
         state = _estimate(state, cfg, obs)
         state = _update_minmax(state, obs)
         state = _update_obstacle(state, obs, frame_nonempty)
@@ -409,6 +511,8 @@ def _build_phases(
             state = raycast.apply_raycasting(
                 geom,
                 state,
+                None,
+                None,
                 sensor_origin,
                 cfg.raycasting,
                 obs_count=obs.voxel_count,
@@ -416,6 +520,31 @@ def _build_phases(
                 frame_nonempty=frame_nonempty,
             )
         return state
+
+    def phase_b(state, T_wb, frame_nonempty, pa):
+        obs, ray, sensor_origin, _xyz_world, _keep, _z_var, win, _oow = pa
+        if local_mode:
+            state = gridmap.move(geom, state, T_wb[:2, 3])
+        if win is None:
+            return update_layers(state, obs, ray, sensor_origin, frame_nonempty)
+
+        # Windowed update: the same per-cell recurrences on a window of
+        # every layer, written back into a copy of the layer. Every touched
+        # cell is in the window, so outside it only the per-frame overwrite
+        # layers change: NaN when the frame is nonempty, kept otherwise.
+        views = {k: win.read(v) for k, v in state.layers.items()}
+        vstate = update_layers(
+            GridMapState(layers=views, position=state.position),
+            obs, ray, sensor_origin, frame_nonempty,
+        )
+        new_layers = {}
+        for k, full in state.layers.items():
+            if k in (layers.obstacle, layers.raycasting):
+                base = torch.where(frame_nonempty, np.nan, full)
+            else:
+                base = full.clone()
+            new_layers[k] = win.write_(base, vstate.layers[k])
+        return GridMapState(layers=new_layers, position=state.position)
 
     return phase_a, phase_b, moved_position
 
@@ -457,10 +586,15 @@ class FastDEM:
         self.state = create_map_state(
             geom, self.cfg, position, has_intensity, has_color, device=self.device
         )
-        # Base->sensor translation allowance baked into the polar-field
-        # bound; widened (with a step rebuild) when a larger extrinsic
-        # shows up.
+        # Base->sensor translation allowance baked into the update-window
+        # and polar-field bounds; widened (with a step rebuild) when a
+        # larger extrinsic shows up.
         self._window_margin = 2.0
+        # Every this many scans, read the out-of-window point count back
+        # (one host sync) as a backstop for what the extrinsic guard in
+        # integrate() cannot see.
+        self._oow_check_every = 64
+        self._scan_counter = 0
         self._step = self._build_step()
         self.calibration = None  # provider with get_extrinsic(frame_id)
         self.odometry = None  # provider with get_pose_at(timestamp_ns)
@@ -584,8 +718,9 @@ class FastDEM:
         if self.has_color and "color" in cloud.channels:
             color_packed = pack_rgb(cloud.channels["color"])
 
-        # The polar-field bound assumes the base->sensor xy offset stays
-        # under the margin: widen it (one rebuild) before integrating.
+        # The window and polar-field bounds assume the base->sensor xy
+        # offset stays under the margin: widen it (one rebuild) before
+        # integrating rather than drop points past the window.
         T_bs_host = np.asarray(
             T_base_sensor.cpu() if isinstance(T_base_sensor, torch.Tensor)
             else T_base_sensor,
@@ -609,6 +744,19 @@ class FastDEM:
             self.state, cloud.xyz, cloud.mask, T_bs, T_wb, intensity, color_packed
         )
         self.last_aux = aux
+        self._scan_counter += 1
+        if (
+            aux.oow_points is not None
+            and self._scan_counter % self._oow_check_every == 0
+        ):
+            n_oow = int(aux.oow_points)
+            if n_oow:
+                log.error(
+                    "[FastDEM] %d in-map points fell OUTSIDE the update "
+                    "window this scan and were dropped: the base->sensor "
+                    "offset exceeds the window margin (%.2f m); widen it "
+                    "or check extrinsics.", n_oow, self._window_margin,
+                )
         if self.on_preprocessed is not None:
             self.on_preprocessed(aux)
         if self.on_rasterized is not None:

@@ -51,7 +51,7 @@ class CellObservations:
     # Distinct z-voxels (side = grid resolution) among the cell's points:
     # the raycaster's observed-evidence multiplicity.
     voxel_count: Optional[torch.Tensor] = None
-    # Output of the gather rider (see rasterize_scatter_rows).
+    # The extra min-scatter's table (see rasterize_scatter_rows).
     extra: Optional[torch.Tensor] = None
 
 
@@ -68,15 +68,25 @@ def _i32_ordered_f32(m: torch.Tensor) -> torch.Tensor:
 
 
 def _window_ids(geom: GridGeometry, position, xyz, mask, window):
-    """Cell ids for the scatter table: (ids, valid, ncell, shape)."""
-    if window is not None:
-        raise NotImplementedError(
-            "the windowed update is not ported yet (ROADMAP section 1, item 10)"
-        )
-    ids, inside = geom.cell_id_of(position, xyz[:, :2])
+    """Cell ids for the scatter table: (ids, valid, ncell, shape).
+
+    ``window`` = (r0, c0, wr, wc), top-left cell as int32 device scalars:
+    ids become window-local ``(r - r0) * wc + (c - c0)`` over a ``wr * wc``
+    table, and points outside the window are masked like out-of-map points.
+    """
+    if window is None:
+        ids, inside = geom.cell_id_of(position, xyz[:, :2])
+        valid = mask & inside
+        ncell = geom.num_cells
+        return torch.where(valid, ids, ncell), valid, ncell, geom.shape
+    r0, c0, wr, wc = window
+    r, c, inside = geom.index_of(position, xyz[:, :2])
+    rl = r - r0
+    cl = c - c0
+    inside = inside & (rl >= 0) & (rl < wr) & (cl >= 0) & (cl < wc)
     valid = mask & inside
-    ncell = geom.num_cells
-    return torch.where(valid, ids, ncell), valid, ncell, geom.shape
+    ncell = wr * wc
+    return torch.where(valid, rl * wc + cl, ncell), valid, ncell, (wr, wc)
 
 
 def _scatter_min_rows(ids: torch.Tensor, upd: torch.Tensor, nrows: int) -> torch.Tensor:
@@ -99,17 +109,17 @@ def rasterize_scatter_rows(
     color_packed: Optional[torch.Tensor] = None,
     with_voxel_count: bool = False,
     extra_min_scatter=None,
-    phase_gather_rider=None,
     voxel_count_mode: str = "exact",
     window=None,
 ) -> CellObservations:
     """Row-widened single-index scatter rasterization of one scan.
 
     ``extra_min_scatter``: optional (ids, values, table_size) of an
-    unrelated min-reduction (the raycaster's polar slopes); its table,
-    +inf where empty, is handed to ``phase_gather_rider``.
-    ``phase_gather_rider``: optional callable ``table -> (buf, idx)``;
-    ``buf[idx]`` lands in ``CellObservations.extra``.
+    unrelated min-reduction (the raycaster's polar slopes); its table
+    without the dump slot, +inf where empty, lands in
+    ``CellObservations.extra``.
+    ``window``: optional (r0, c0, wr, wc); the observations are then
+    window-shaped (see ``_window_ids``).
     """
     if voxel_count_mode not in ("exact", "span"):
         raise ValueError(f"unknown voxel_count_mode: {voxel_count_mode!r}")
@@ -146,7 +156,7 @@ def rasterize_scatter_rows(
         raise NotImplementedError(
             "the exact voxel count above (ncell+1)*(L+32) > 2^23 table "
             "entries (voxel_unique_mask fallback) is not ported yet "
-            "(ROADMAP section 1, item 10)"
+            "(ROADMAP section 3, the voxel-count switch)"
         )
     vox_lane0 = None
     if vox_in_rows:
@@ -176,7 +186,7 @@ def rasterize_scatter_rows(
         mi = -_i32_ordered_f32(t[:, int_lane])
         max_intensity = torch.where(torch.isfinite(mi), mi, float("nan")).reshape(shape)
 
-    extra_f32 = None
+    extra = None
     if extra_min_scatter is not None:
         e_ids, e_vals, e_size = extra_min_scatter
         et = torch.full((e_size,), _IMAX, dtype=torch.int32, device=dev)
@@ -184,17 +194,12 @@ def rasterize_scatter_rows(
             0, e_ids.long(), _f32_ordered_i32(e_vals), "amin", include_self=True
         )
         et = et[: e_size - 1]
-        extra_f32 = torch.where(et == _IMAX, _INF, _i32_ordered_f32(et))
+        extra = torch.where(et == _IMAX, _INF, _i32_ordered_f32(et))
 
     min_z_var = z_var[amin]
     color = None
     if color_packed is not None:
         color = torch.where(touched, color_packed[amin], float("nan")).reshape(shape)
-    if phase_gather_rider is not None:
-        rider_buf, rider_idx = phase_gather_rider(extra_f32)
-        extra = rider_buf[rider_idx.long()]
-    else:
-        extra = extra_f32
 
     voxel_count = None
     if vox_in_rows:

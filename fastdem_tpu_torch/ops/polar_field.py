@@ -13,22 +13,21 @@ From the scattered min-slope table [R, A] it computes, in order:
 ``polar_field`` launches the kernel (``csrc/polar_field.cu``) for a CUDA
 tensor and runs ``polar_field_plain`` -- the same steps as plain PyTorch
 ops, mirroring the reference's XLA formulation -- for a CPU tensor. The
-kernel is built with nvcc from the repository's source at first use into
-``csrc/_build/`` (a C interface loaded with ctypes); a build or launch
-failure raises. ``launches`` counts kernel launches.
+kernel is built with nvcc from the repository's source at first use
+(``ops/cuda_build.py``); a build or launch failure raises. ``launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
+
+from fastdem_tpu_torch.numerics import fma_f32
+from fastdem_tpu_torch.ops import cuda_build
 
 # Kernel launches since import (or since the caller last reset it).
 launches = 0
@@ -36,18 +35,9 @@ launches = 0
 # ceil(1 / range_bin_factor) <= 10 for every validated config).
 NFOLD_MAX = 10
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCE = _CSRC / "polar_field.cu"
-_BUILD_DIR = _CSRC / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = cuda_build.CSRC / "polar_field.cu"
 
 _lib = None
-# nvcc's output of the build this process made (registers, spills), or ""
-# when the library was already built.
-build_log = ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,39 +60,12 @@ class ColumnWindows:
         )
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME / nvcc) to build K1")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
 def library():
     """Build (once per source hash) and load the kernel library."""
-    global _lib, build_log
+    global _lib
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(
-        _SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    so = _BUILD_DIR / f"polar_field_{digest}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = _BUILD_DIR / f"polar_field_{digest}.{os.getpid()}.tmp.so"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-            capture_output=True,
-            text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {_SOURCE.name} "
-                f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        build_log = proc.stdout + proc.stderr
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = cuda_build.load(SOURCE)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fastdem_polar_field.argtypes = [vp, vp, vp, vp, cf, ci, ci, ci, ci, vp, vp]
     lib.fastdem_polar_field.restype = ci
@@ -190,8 +153,9 @@ def polar_field_plain(
     R, A = scat.shape
     ms = torch.flip(torch.cummin(torch.flip(scat, [0]), dim=0).values, [0])
     d_r = torch.arange(R, dtype=torch.float32, device=scat.device)[:, None] * dr
+    # The reference's compiler contracts z0 + ms * d_r into one FMA.
     h = torch.where(
-        torch.isfinite(ms), sensor_origin[2] + ms * d_r, float("inf")
+        torch.isfinite(ms), fma_f32(ms, d_r, sensor_origin[2]), float("inf")
     )
 
     def shift_down(a, k):

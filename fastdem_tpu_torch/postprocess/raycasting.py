@@ -8,10 +8,13 @@ origin_z + d * min(slope of rays alive at d):
      polar table (``polar_scatter_spec``; the rasterizer runs it);
   2. the dense tail -- reverse cummin along range, in-cell fold, per-row
      azimuth smears -- is K1 (``ops/polar_field.py``);
-  3. one lookup per cell at its (range, azimuth) (``resample_indices``).
+  3. one or two lookups per cell at its (range, azimuth)
+     (``resample_indices``), then the touched mask: K4
+     (``ops/resample.py``), over the whole map or a sensor-centred window.
 
 ``apply_raycasting`` then adds observed evidence, resolves ghost cells and
-clears them, as the reference does.
+clears them, as the reference does; ``polar_resample`` and
+``ray_min_height_polar`` are the standalone forms of steps 1-3.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from fastdem_tpu_torch.numerics import fma_f32, recip_f32, sqrt_f32
 from fastdem_tpu_torch.grid.geometry import GridGeometry, floor_i32, to_i32
 from fastdem_tpu_torch.grid.gridmap import GridMapState, layers
 from fastdem_tpu_torch.ops import polar_field as k1
+from fastdem_tpu_torch.ops import resample as k4
 
 _INF = float("inf")
 _PI = math.pi
@@ -197,16 +201,31 @@ def resample_indices(
     num_azimuth: int = 2048,
     range_bin_factor: float = 0.5,
     max_range: Optional[float] = None,
-    window=None,
+    window: Optional[Tuple] = None,
 ):
     """Per-cell (a0, a1, r_idx, in_range) lookups into the smeared field.
-    Cells beyond the field's range bound report in_range=False."""
-    if window is not None:
-        raise NotImplementedError(
-            "the windowed resample is not ported yet (ROADMAP section 1, item 10)"
-        )
+    Cells beyond the field's range bound report in_range=False.
+
+    ``window``: optional (r0, c0, wr, wc) -- only the wr x wc cells whose
+    top-left cell is (r0, c0); r0 / c0 are int32 device scalars, so the
+    window never costs a host sync.
+    """
     A, R, dr = polar_dims(geom, num_azimuth, range_bin_factor, max_range)
-    cx, cy = geom.cell_centers(position)
+    dev = position.device
+    if window is not None:
+        r0, c0, wr, wc = window
+        rr = r0 + torch.arange(wr, dtype=torch.int32, device=dev)
+        cc = c0 + torch.arange(wc, dtype=torch.int32, device=dev)
+    else:
+        wr, wc = geom.shape
+        rr = torch.arange(wr, dtype=torch.int32, device=dev)
+        cc = torch.arange(wc, dtype=torch.int32, device=dev)
+    # Cell centres o - (i + 0.5) * res, which the reference's compiler
+    # contracts into one fused multiply-add inside its compiled step.
+    ox, oy = geom.origin(position)
+    res = torch.tensor(geom.resolution, dtype=torch.float32, device=dev)
+    cx = fma_f32(-(rr.to(torch.float32) + 0.5), res, ox)[:, None].expand(wr, wc)
+    cy = fma_f32(-(cc.to(torch.float32) + 0.5), res, oy)[None, :].expand(wr, wc)
     ddx = cx - sensor_origin[0]
     ddy = cy - sensor_origin[1]
     dist = _hypot(ddx, ddy)
@@ -233,25 +252,104 @@ def resample_indices(
     return a0, a1, r_idx, in_range
 
 
+def polar_resample(
+    geom: GridGeometry,
+    position: torch.Tensor,
+    sensor_origin: torch.Tensor,
+    scat_flat: torch.Tensor,
+    num_azimuth: int = 2048,
+    range_bin_factor: float = 0.5,
+    max_range: Optional[float] = None,
+    exact_window: bool = False,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scattered [R*A] min slopes -> per-cell (min ray height, touched).
+
+    The field is K1 (``impl`` as in ``polar_smeared_field``), the lookup K4:
+    ``exact_window=True`` folds the window residual into the field so ONE
+    read per cell replaces the two-read sparse-table form -- the same
+    minimum set, bitwise-identical heights.
+    """
+    smeared = polar_smeared_field(
+        geom, sensor_origin, scat_flat, num_azimuth, range_bin_factor,
+        max_range, exact_window=exact_window, impl=impl,
+    )
+    a0, a1, r_idx, in_range = resample_indices(
+        geom, position, sensor_origin, num_azimuth, range_bin_factor, max_range,
+    )
+    return k4.resample(smeared, a0, None if exact_window else a1, r_idx, in_range)
+
+
+def ray_min_height_polar(
+    geom: GridGeometry,
+    position: torch.Tensor,
+    xyz: torch.Tensor,
+    ray_mask: torch.Tensor,
+    sensor_origin: torch.Tensor,
+    num_azimuth: int = 2048,
+    range_bin_factor: float = 0.5,
+    max_range: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-cell minimum ray height of a scan: (min_height [H, W], touched)."""
+    key, vals, size = polar_scatter_spec(
+        geom, position, xyz, ray_mask, sensor_origin, num_azimuth,
+        range_bin_factor, max_range,
+    )
+    table = torch.full((size,), _INF, dtype=torch.float32, device=xyz.device)
+    table.scatter_reduce_(0, key.long(), vals, "amin", include_self=True)
+    return polar_resample(
+        geom, position, sensor_origin, table[: size - 1], num_azimuth,
+        range_bin_factor, max_range,
+    )
+
+
 def apply_raycasting(
     geom: GridGeometry,
     state: GridMapState,
+    xyz: Optional[torch.Tensor],
+    scan_mask: Optional[torch.Tensor],
     sensor_origin: torch.Tensor,
     cfg,
-    obs_count: torch.Tensor,
-    ray_min_touched: Tuple[torch.Tensor, torch.Tensor],
+    obs_count: Optional[torch.Tensor] = None,
+    method: str = "polar",
+    num_azimuth: int = 2048,
+    range_bin_factor: float = 0.5,
+    max_range: Optional[float] = None,
+    polar_table: Optional[torch.Tensor] = None,
+    ray_min_touched: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     frame_nonempty=True,
 ) -> GridMapState:
-    """Apply one scan's visibility update from the precomputed per-cell
-    observed-voxel counts and (min ray height, touched) fields.
+    """Apply one scan's visibility update; ``cfg`` is a ``RaycastingConfig``.
 
-    ``cfg`` is a ``RaycastingConfig``. The reference's standalone forms
-    (computing the counts or the ray field here) are not ported.
+    ``obs_count``: per-cell observed-point multiplicity from the
+    rasterizer; counted here by a scatter-add of ``xyz`` / ``scan_mask``
+    (the scan in the world frame) when absent. ``ray_min_touched``: the
+    precomputed (min ray height, touched) fields; otherwise they come from
+    ``polar_table`` (a pre-scattered [R*A] min-slope table) or from the
+    scan itself. ``xyz`` / ``scan_mask`` may be None when both fields are
+    given, as in the pipeline.
     """
+    if method != "polar":
+        raise NotImplementedError(
+            f'raycasting method={method!r} is not ported to fastdem_tpu_torch '
+            "yet (ROADMAP section 1, item 13)"
+        )
     origin_inside = geom.is_inside(state.position, sensor_origin[:2])
+    active = None if scan_mask is None else scan_mask & origin_inside
 
     # 1. Observed evidence (add, then clamp).
-    obs_count_eff = torch.where(origin_inside, obs_count, 0.0)
+    if obs_count is None:
+        ncell = geom.num_cells
+        ids, inside = geom.cell_id_of(state.position, xyz[:, :2])
+        obs_valid = active & inside
+        ids_obs = torch.where(obs_valid, ids, ncell).long()
+        obs_count_eff = (
+            torch.zeros(ncell + 1, dtype=torch.float32, device=xyz.device)
+            .scatter_add_(0, ids_obs, obs_valid.to(torch.float32))[:ncell]
+            .reshape(geom.shape)
+        )
+    else:
+        obs_count_eff = torch.where(origin_inside, obs_count, 0.0)
     add = obs_count_eff * cfg.log_odds_observed
     lo = state.layers[layers.visibility_logodds]
     lo_base = torch.where(torch.isnan(lo), 0.0, lo)
@@ -261,7 +359,19 @@ def apply_raycasting(
 
     # 2. Per-cell min ray height; an all-masked frame keeps the previous
     # diagnostic layer.
-    ray_min, ray_touched = ray_min_touched
+    if ray_min_touched is not None:
+        ray_min, ray_touched = ray_min_touched
+    elif polar_table is not None:
+        ray_min, ray_touched = polar_resample(
+            geom, state.position, sensor_origin, polar_table, num_azimuth,
+            range_bin_factor, max_range, impl=cfg.polar_field_impl,
+        )
+    else:
+        ray_min, ray_touched = ray_min_height_polar(
+            geom, state.position, xyz, active, sensor_origin, num_azimuth,
+            range_bin_factor, max_range,
+        )
+    frame_nonempty = torch.as_tensor(frame_nonempty, device=lo.device)
     ray_layer = torch.where(
         frame_nonempty,
         torch.where(ray_touched, ray_min, np.nan),

@@ -6,8 +6,10 @@ On a machine with a card and no JAX, run them without the suite's conftest
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 K1 against its plain twin (identical finite sets, heights within 4e-6),
-its launch counter, the wrapper's input checks, and a small session on the
-card against the same session on the CPU.
+K4 against its plain twin (bit for bit in both forms, NaN propagated), their
+launch counters, the wrappers' input checks, and small sessions (flagship,
+windowed GLOBAL with Kalman and P^2) on the card against the same sessions
+on the CPU.
 """
 
 import numpy as np
@@ -16,7 +18,9 @@ import torch
 
 import fastdem_tpu_torch as fd
 from fastdem_tpu_torch.ops import polar_field as k1
+from fastdem_tpu_torch.ops import resample as k4
 from fastdem_tpu_torch.postprocess import raycasting as raycast
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture
@@ -89,15 +93,98 @@ def session(device, impl, n_scans=4):
     return m.state
 
 
-@pytest.mark.parametrize("impl,launches", [("auto", 4), ("pallas", 4), ("xla", 0)])
-def test_session_on_card_matches_cpu(cuda, impl, launches):
-    before = k1.launches
-    gpu = session(cuda, impl)
-    torch.cuda.synchronize()
-    assert k1.launches - before == launches
-    cpu = session("cpu", "auto")
+def assert_states_agree(cpu, gpu):
     for name, ref in cpu.layers.items():
         ref = ref.numpy()
         got = gpu.layers[name].cpu().numpy()
         close = np.isclose(got, ref, rtol=1e-5, atol=1e-5, equal_nan=True)
         assert close.mean() >= 0.999, name
+
+
+@pytest.mark.parametrize("impl,launches", [("auto", 4), ("pallas", 4), ("xla", 0)])
+def test_session_on_card_matches_cpu(cuda, impl, launches):
+    before, before4 = k1.launches, k4.launches
+    gpu = session(cuda, impl)
+    torch.cuda.synchronize()
+    assert k1.launches - before == launches
+    assert k4.launches - before4 == 4
+    assert_states_agree(session("cpu", "auto"), gpu)
+
+
+@pytest.mark.parametrize("two_reads", [True, False])
+@pytest.mark.parametrize("R,A,cells", [(515, 2048, 150), (962, 2048, 484)])
+def test_k4_matches_plain_twin(cuda, two_reads, R, A, cells):
+    rng = np.random.default_rng(1)
+    field = rng.uniform(-2.0, 0.5, (R, A)).astype(np.float32)
+    field[rng.random((R, A)) < 0.97] = np.inf
+    field[rng.random((R, A)) < 0.01] = np.nan
+    shape = (cells, cells)
+    args = [
+        torch.tensor(field, device=cuda),
+        torch.tensor(rng.integers(0, A, shape).astype(np.int32), device=cuda),
+        torch.tensor(rng.integers(0, A, shape).astype(np.int32), device=cuda)
+        if two_reads else None,
+        torch.tensor(rng.integers(0, R, shape).astype(np.int32), device=cuda),
+        torch.tensor(rng.random(shape) < 0.9, device=cuda),
+    ]
+    before = k4.launches
+    h, t = k4.resample_cuda(*args)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    h_ref, t_ref = k4.resample_plain(*args)
+    np.testing.assert_array_equal(t.cpu().numpy(), t_ref.cpu().numpy())
+    np.testing.assert_array_equal(h.cpu().numpy().view(np.int32),
+                                  h_ref.cpu().numpy().view(np.int32))
+    # NaN in the field reaches the cell (touched False, NaN out), as in the twin.
+    assert t.sum() > 0 and torch.isnan(h[~t]).all()
+
+
+def test_k4_rejects_bad_inputs(cuda):
+    field = torch.zeros((8, 16), device=cuda)
+    idx = torch.zeros((3, 4), dtype=torch.int32, device=cuda)
+    ok = torch.ones((3, 4), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.resample_cuda(field.t(), idx, None, idx, ok)
+    with pytest.raises(ValueError, match="a0"):
+        k4.resample_cuda(field, idx.long(), None, idx, ok)
+    with pytest.raises(ValueError, match="in_range"):
+        k4.resample_cuda(field, idx, None, idx, ok.cpu())
+
+
+def windowed_session(device, est, window_update, n_scans=4):
+    geom = fd.GridGeometry.from_length(40.0, 40.0, 0.1)
+    cfg = fd.Config()
+    cfg.mapping.mode = fd.MappingMode.GLOBAL
+    cfg.mapping.estimation_type = est
+    cfg.raycasting.enabled = True
+    cfg.point_filter.range_max = 6.0
+    step = fd.build_integrate(geom, cfg, window_update=window_update, device=device)
+    s = fd.create_map_state(geom, cfg, device=device)
+    rng = np.random.default_rng(4)
+    T_bs = torch.eye(4, device=device)
+    T_bs[2, 3] = 1.0
+    for k in range(n_scans):
+        n = 30000
+        ang = rng.uniform(0, 2 * np.pi, n)
+        rad = rng.uniform(0.5, 5.8, n)
+        xyz = np.column_stack([rad * np.cos(ang), rad * np.sin(ang),
+                               rng.normal(-1.0, 0.02, n)]).astype(np.float32)
+        T_wb = torch.eye(4, device=device)
+        T_wb[0, 3] = -4.0 + 1.3 * k
+        s, _ = step(s, torch.tensor(xyz, device=device),
+                    torch.ones(n, dtype=torch.bool, device=device), T_bs, T_wb)
+    return s
+
+
+@pytest.mark.parametrize("est", ["KALMAN", "P2_QUANTILE"])
+def test_windowed_session_on_card(cuda, est):
+    est = getattr(fd.EstimationType, est)
+    before, before4 = k1.launches, k4.launches
+    win = windowed_session(cuda, est, None)
+    torch.cuda.synchronize()
+    assert (k1.launches - before, k4.launches - before4) == (4, 4)
+    full = windowed_session(cuda, est, False)
+    for name, ref in full.layers.items():
+        np.testing.assert_array_equal(win.layers[name].cpu().numpy(), ref.cpu().numpy(),
+                                      err_msg=name)
+    assert_states_agree(windowed_session("cpu", est, None), win)

@@ -16,6 +16,7 @@ from fastdem_tpu.grid import gridmap as gm_j
 from fastdem_tpu.grid.geometry import GridGeometry as GeomJ
 from fastdem_tpu_torch.grid import gridmap as gm_t
 from fastdem_tpu_torch.grid.geometry import GridGeometry as GeomT
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse)
 
 GEOMS = [(15.0, 15.0, 0.1), (12.0, 12.0, 0.2), (3.0, 5.0, 0.25)]
 

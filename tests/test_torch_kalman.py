@@ -19,6 +19,7 @@ from fastdem_tpu_torch.config import KalmanConfig as KalmanConfigT
 from fastdem_tpu_torch.grid import gridmap as gm_t
 from fastdem_tpu_torch.grid.geometry import GridGeometry as GeomT
 from fastdem_tpu_torch.mapping import kalman as kal_t
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPE = (24, 31)
 

@@ -16,6 +16,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "fastdem_tpu_torch")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's tests run torch on one intra-op thread: the suite runs in
+    several worker processes, and a thread pool per worker on every core
+    oversubscribes the machine (and disturbs timing-based tests elsewhere).
+    The other ``test_torch_*`` modules import this fixture."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys; import fastdem_tpu_torch as fd; "

@@ -27,6 +27,7 @@ import bench
 import fastdem_tpu as fj
 import fastdem_tpu_torch as ft
 from fastdem_tpu.cloud import pointcloud as pc_j
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "session_kalman.npz")
 GOLDEN_LAYERS = (
@@ -35,11 +36,13 @@ GOLDEN_LAYERS = (
 )
 
 
-def run_golden_session_port():
-    """``tests/test_goldens.py::run_session("kalman")`` on the port."""
+def run_golden_session_port(estimator="kalman"):
+    """``tests/test_goldens.py::run_session(estimator)`` on the port."""
     geom = ft.GridGeometry.from_length(12.0, 12.0, 0.2)
     cfg = ft.Config()
-    cfg.mapping.estimation_type = ft.EstimationType.KALMAN
+    cfg.mapping.estimation_type = (
+        ft.EstimationType.P2_QUANTILE if estimator == "p2" else ft.EstimationType.KALMAN
+    )
     cfg.raycasting.enabled = True
     cfg.point_filter.range_max = 10.0
     m = ft.FastDEM(geom, cfg, device="cpu")
@@ -224,8 +227,16 @@ def test_facade_setters_rebuild(rng):
     p = m.state.layers["_kalman_p"][torch.isfinite(m.state.layers["elevation"])]
     assert p.numel() > 100
     np.testing.assert_allclose(p.numpy(), 0.03 * 0.03, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1, item 9"):
-        m.set_estimator_type(ft.EstimationType.P2_QUANTILE)
+    # P^2 adds its layers and keeps the existing ones.
+    m.set_estimator_type(ft.EstimationType.P2_QUANTILE)
+    assert set(ft.layers.p2_q) | set(ft.layers.p2_n) <= set(m.state.layers)
+    assert "_kalman_p" in m.state.layers
+    np.testing.assert_array_equal(m.state.layers["_p2_n3"].numpy(), 3.0)
+    m.reset()
+    assert m.integrate(small_cloud(rng), np.eye(4, dtype=np.float32),
+                       np.eye(4, dtype=np.float32))
+    assert (m.state.layers["n_points"] == 1).sum() > 100
+    assert torch.isfinite(m.state.layers["_p2_q0"]).sum() > 100
 
 
 def test_unported_configurations_raise():
@@ -254,22 +265,37 @@ def test_unported_configurations_raise():
         return c
 
     raising = [
-        (geom, cfg_with(raycasting__method="sampled"), "item 13"),
-        (geom, cfg_with(mapping__estimation_type=ft.EstimationType.P2_QUANTILE), "item 9"),
-        # Windowed update: a 2 m range filter on a 60 m GLOBAL map.
-        (ft.GridGeometry.from_length(60.0, 60.0, 0.2),
-         cfg_with(mapping__mode=ft.MappingMode.GLOBAL, point_filter__range_max=2.0),
-         "item 10"),
+        (geom, cfg_with(raycasting__method="sampled"), "section 1, item 13"),
         # More than 2^19 cells unwindowed: the reference switches rasterizer.
         (ft.GridGeometry.from_length(80.0, 80.0, 0.1),
-         cfg_with(mapping__mode=ft.MappingMode.GLOBAL), "item 10"),
-        # An explicit ray range below the map: the windowed resample.
-        (geom, cfg_with(mapping__mode=ft.MappingMode.GLOBAL, raycasting__max_range=3.0),
-         "item 10"),
+         cfg_with(mapping__mode=ft.MappingMode.GLOBAL), "section 3"),
+        # A window above 2^19 cells (a 40 m range filter at 0.1 m) does too.
+        (ft.GridGeometry.from_length(200.0, 200.0, 0.1),
+         cfg_with(mapping__mode=ft.MappingMode.GLOBAL, point_filter__range_max=40.0),
+         "section 3"),
     ]
-    for g, c, item in raising:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP section 1, {item}"):
+    for g, c, where in raising:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {where}"):
             ft.build_integrate(g, c, device="cpu")
+
+    # What earlier raised now builds and integrates one scan: P^2, the
+    # windowed update (a 2 m range filter on a 60 m GLOBAL map) and the
+    # windowed resample alone (an explicit ray range below the map).
+    rng = np.random.default_rng(0)
+    now_ported = [
+        (geom, cfg_with(mapping__estimation_type=ft.EstimationType.P2_QUANTILE), False),
+        (ft.GridGeometry.from_length(60.0, 60.0, 0.2),
+         cfg_with(mapping__mode=ft.MappingMode.GLOBAL, point_filter__range_max=2.0), True),
+        (geom, cfg_with(mapping__mode=ft.MappingMode.GLOBAL, raycasting__max_range=3.0),
+         False),
+    ]
+    for g, c, windowed in now_ported:
+        m = ft.FastDEM(g, c, device="cpu")
+        assert m.integrate(small_cloud(rng), np.eye(4, dtype=np.float32),
+                           np.eye(4, dtype=np.float32))
+        assert (m.state.layers["n_points"] > 0).sum() > 50
+        assert torch.isfinite(m.state.layers["raycasting"]).sum() > 50
+        assert (m.last_aux.oow_points is not None) == windowed
 
 
 def test_wrong_package_config_and_missing_cuda():

@@ -22,6 +22,7 @@ from fastdem_tpu.postprocess import raycasting as ray_j
 from fastdem_tpu_torch.grid.geometry import GridGeometry as GeomT
 from fastdem_tpu_torch.ops import polar_field as k1
 from fastdem_tpu_torch.postprocess import raycasting as ray_t
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = [
     (2048, 0.25, 12.81, True),

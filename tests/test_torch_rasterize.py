@@ -20,6 +20,7 @@ from fastdem_tpu.mapping import rasterize as ras_j
 from fastdem_tpu_torch.cloud import pointcloud as pc_t
 from fastdem_tpu_torch.grid.geometry import GridGeometry as GeomT
 from fastdem_tpu_torch.mapping import rasterize as ras_t
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse)
 
 
 def bits(a):
@@ -130,13 +131,15 @@ def test_rasterize_rows_matches_jax(rng, n, capacity, ties, mode):
         intensity=ct.channels["intensity"], color_packed=col_t,
         with_voxel_count=True,
         extra_min_scatter=(torch.tensor(e_ids), torch.tensor(e_vals), e_size),
-        phase_gather_rider=lambda t: (t * 2.0, torch.tensor(r_idx)),
         voxel_count_mode=mode,
     )
     assert got.touched.sum() > 500
-    for name in ("touched", "voxel_count", "min_z", "max_z", "max_intensity",
-                 "color", "extra"):
+    for name in ("touched", "voxel_count", "min_z", "max_z", "max_intensity", "color"):
         assert_bits_equal(getattr(ref, name), getattr(got, name), name)
+    # The port hands the extra table itself on; the reference's rider
+    # gathers from it.
+    assert tuple(got.extra.shape) == (e_size - 1,)
+    assert_bits_equal(ref.extra, (got.extra * 2.0)[torch.tensor(r_idx).long()], "extra")
     np.testing.assert_allclose(
         got.min_z_var.numpy(), np.asarray(ref.min_z_var), rtol=1e-6, equal_nan=True
     )
@@ -153,9 +156,10 @@ def test_rasterize_all_masked():
     assert torch.isnan(obs.min_z).all() and (obs.voxel_count == 0).all()
 
 
-def test_voxel_count_fallback_and_window_raise():
+def test_voxel_count_fallback_and_window_raise(rng):
     """Beyond 2^23 row-table entries the reference counts voxels another way;
-    the port raises instead of computing something else."""
+    the port raises instead of computing something else. A window rebases
+    the table: its observations are the full map's, cut to the window."""
     gt = GeomT(rows=500, cols=500, resolution=0.1)
     xyz = torch.zeros((8, 3))
     mask = torch.ones(8, dtype=torch.bool)
@@ -163,10 +167,27 @@ def test_voxel_count_fallback_and_window_raise():
         ras_t.rasterize_scatter_rows(
             gt, torch.zeros(2), xyz, mask, torch.ones(8), with_voxel_count=True
         )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ras_t.rasterize_scatter_rows(
-            gt, torch.zeros(2), xyz, mask, torch.ones(8), window=(0, 0, 10, 10)
-        )
     # Without the voxel count the large table is fine.
     obs = ras_t.rasterize_scatter_rows(gt, torch.zeros(2), xyz, mask, torch.ones(8))
     assert obs.touched.sum() == 1
+
+    g = GeomT.from_length(8.0, 6.0, 0.1)
+    n = 3000
+    xyz = torch.tensor(make_cloud(rng, n, n, g, False))
+    mask = torch.ones(n, dtype=torch.bool)
+    zv = torch.tensor(rng.uniform(1e-4, 1e-2, n).astype(np.float32))
+    pos = torch.tensor([0.13, -0.27])
+    full = ras_t.rasterize_scatter_rows(g, pos, xyz, mask, zv, with_voxel_count=True)
+    r0, c0, wr, wc = 17, 9, 40, 33
+    win = ras_t.rasterize_scatter_rows(
+        g, pos, xyz, mask, zv, with_voxel_count=True,
+        window=(torch.tensor(r0, dtype=torch.int32), torch.tensor(c0, dtype=torch.int32),
+                wr, wc),
+    )
+    assert 0 < win.touched.sum() < full.touched.sum()
+    # min_z_var is left out: the window drops points, which moves the z
+    # range the argmin carry is quantised over (in the pipeline the window
+    # holds every valid point).
+    for name in ("touched", "voxel_count", "min_z", "max_z"):
+        assert_bits_equal(getattr(full, name)[r0:r0 + wr, c0:c0 + wc],
+                          getattr(win, name), name)

@@ -14,6 +14,7 @@ from fastdem_tpu.config import config as config_j
 from fastdem_tpu.sensors import models as mod_j
 from fastdem_tpu_torch import config as config_t
 from fastdem_tpu_torch.sensors import models as mod_t
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse)
 
 
 def rotation(rng):
