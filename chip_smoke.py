@@ -34,6 +34,22 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  against CPU, terrain check.
  10. time     -- ms/scan over 32-scan chains (CUDA events): GLOBAL Kalman,
                  flagship P^2, flagship Kalman.
+ 11. postprocess -- the post-processing chain (uncertainty fusion,
+                 inpainting, PCA features) plus the 3x3 median on the
+                 flagship map of phase 6 (150x150) and on the GLOBAL map of
+                 phase 7 (2000x2000), card against CPU on the same layers
+                 (the 2000x2000 map on a 512x512 block of mapped cells, run
+                 on the CPU with an 8-cell margin): NaN sets exact, values
+                 within 2e-6 (slope 5e-3 degrees; roughness, where sqrt
+                 amplifies, through its square within 1e-8); device ms,
+                 wall ms, kernel launches and peak memory per chain.
+ 12. sampled  -- the polar path (K1 + K4, ray_min_height_polar) against the
+                 sampled oracle on the card (the reference's LiDAR parity
+                 scene, 12x12 m at 0.1 m): 90th percentile of |polar -
+                 sampled| < 0.1 m, < 4% of cells > 0.15 m above it, polar
+                 covering > 97% of its cells; then a 5-scan flagship
+                 session with raycasting.method = "sampled", card against
+                 CPU (no K1 / K4 launch on that path).
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -57,6 +73,7 @@ import fastdem_tpu_torch as fd  # noqa: E402
 from fastdem_tpu_torch.ops import cuda_build  # noqa: E402
 from fastdem_tpu_torch.ops import polar_field as k1  # noqa: E402
 from fastdem_tpu_torch.ops import resample as k4  # noqa: E402
+from fastdem_tpu_torch.postprocess import apply_postprocess_fn, smooth_median  # noqa: E402
 from fastdem_tpu_torch.postprocess import raycasting as raycast  # noqa: E402
 
 N_SCANS = 10
@@ -77,6 +94,17 @@ PARITY_MIN_SHARE = 0.999
 # Terrain check: median |elevation - terrain| on mapped cells. The P^2
 # elevation is the 84% quantile marker, one noise sigma above the mean.
 TERRAIN_TOL = {"kalman": 0.01, "p2": 0.02}
+# Post-processing, card against CPU: the tolerances the C++ golden holds
+# the reference to; roughness = sqrt(smallest eigenvalue), so where sqrt
+# amplifies, its square is held instead.
+PP_ATOL = 2e-6
+PP_SLOPE_ATOL = 5e-3
+PP_EIGEN_ATOL = 1e-8
+PP_BLOCK = 512
+# Cells a block's results depend on beyond it: three inpainting passes of
+# radius 1, the features' 0.3 m disk (3 cells) and the 3x3 median.
+PP_MARGIN = 8
+PP_REPS = 5
 
 
 def terrain(x, y):
@@ -209,17 +237,18 @@ def check_map(what, geom, mapper, est, min_cells):
         )
 
 
-def drive(what, device, geom, cfg, scans, T_bs, poses):
+def drive(what, device, geom, cfg, scans, T_bs, poses, per_scan=1):
     """One main-path run on the card with the launch counts set to 0 just
-    before it and read just after: (mapper, K1 launches, K4 launches)."""
+    before it and read just after: (mapper, K1 launches, K4 launches).
+    Each kernel must launch ``per_scan`` times per scan."""
     torch.cuda.synchronize()
     k1.launches = 0
     k4.launches = 0
     mapper, oow = run_session(device, geom, cfg, scans, T_bs, poses)
     torch.cuda.synchronize()
     l1, l4 = k1.launches, k4.launches
-    n = len(poses)
-    print(f"{what}: {n} scans, K1 launches {l1}, K4 launches {l4}")
+    n = len(poses) * per_scan
+    print(f"{what}: {len(poses)} scans, K1 launches {l1}, K4 launches {l4}")
     if (l1, l4) != (n, n):
         raise AssertionError(f"{what}: K1/K4 launched {l1}/{l4} times, want {n} each")
     if oow[0] is not None:
@@ -243,9 +272,11 @@ def cuda_median_ms(fn, reps):
     return float(np.median(times))
 
 
-def device_ms(fn, reps):
-    """Device time per call of the kernels ``fn`` launches: the sum of the
-    CUDA kernel events of ``reps`` calls under torch.profiler, / reps."""
+def device_profile(fn, reps, top=0):
+    """(device ms, device events) per call of ``fn``: the sum and the count
+    of the CUDA events (kernels, copies, fills) of ``reps`` calls under
+    torch.profiler, / reps. ``top`` > 0 also prints that many ops by
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -253,14 +284,24 @@ def device_ms(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    if top:
+        print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=top,
+                                        max_name_column_width=50))
     total = 0.0
+    count = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             t = getattr(e, "device_time", None)
             total += e.cuda_time if t is None else t
+            count += 1
     if total <= 0.0:
         raise AssertionError("the profiler recorded no device time")
-    return total / reps / 1000.0
+    return total / reps / 1000.0, count / reps
+
+
+def device_ms(fn, reps):
+    """Device time per call of the kernels ``fn`` launches."""
+    return device_profile(fn, reps)[0]
 
 
 def time_pair(what, fn_kernel, fn_plain, reps=200, plain_reps=50):
@@ -441,6 +482,187 @@ def chain_ms(geom, cfg, seed, session_fn):
     return start.elapsed_time(end) / CHAIN
 
 
+def postprocess_config():
+    """The chain as the reference's benchmark runs it: uncertainty fusion,
+    inpainting and feature extraction, default parameters."""
+    pp = fd.PostProcessConfig()
+    pp.uncertainty_fusion.enabled = True
+    pp.inpainting.enabled = True
+    pp.feature_extraction.enabled = True
+    return pp
+
+
+def run_chain(geom, pp, layers):
+    """The chain plus the 3x3 median of its elevation."""
+    out = apply_postprocess_fn(geom, pp)(*layers)
+    out["elevation_smoothed"] = smooth_median(out["elevation"], 3, 5)
+    return out
+
+
+def compare_chain(what, ref, got):
+    """Per layer: NaN sets exact, values within the tolerances; prints the
+    bitwise-equal share of the finite cells."""
+    failed = []
+    for name in sorted(ref):
+        r, g = ref[name].cpu().numpy(), got[name].cpu().numpy()
+        nan_mis = int((np.isnan(r) != np.isnan(g)).sum())
+        fin = np.isfinite(r) & np.isfinite(g)
+        d = np.abs(r[fin] - g[fin])
+        over = d > (PP_SLOPE_ATOL if name == "slope" else PP_ATOL)
+        if name == "roughness":
+            rr, gg = r[fin][over].astype(np.float64), g[fin][over].astype(np.float64)
+            over_n = int((np.abs(rr * rr - gg * gg) > PP_EIGEN_ATOL).sum())
+        else:
+            over_n = int(over.sum())
+        bits = float(np.mean(r[fin].view(np.int32) == g[fin].view(np.int32))) if fin.any() else 1.0
+        print(f"{what} {name}: {int(fin.sum())} finite cells, NaN-set mismatches "
+              f"{nan_mis}, over tolerance {over_n}, max |diff| {float(d.max(initial=0.0))!r}, "
+              f"bitwise equal {bits!r}")
+        if nan_mis or over_n:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"{what}: card and CPU differ on {failed}")
+
+
+def time_chain(what, geom, pp, layers, card, top=0):
+    """Device ms (torch.profiler), wall ms (host clock around a
+    synchronised call, median), device events and peak memory per chain;
+    ``top`` > 0 prints the ops that take the most device time."""
+    fn = apply_postprocess_fn(geom, pp)
+
+    def run():
+        return fn(*layers)
+
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms, events = device_profile(run, PP_REPS, top)
+    walls = []
+    for _ in range(PP_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1000.0)
+    wall = float(np.median(walls))
+    print(f"{what}: device {dev_ms!r} ms/chain (torch.profiler), wall {wall!r} ms/chain "
+          f"(median of {PP_REPS}, host clock, synchronised), {events!r} device events "
+          f"(kernel launches, copies, fills) per chain, peak memory "
+          f"{peak / 2**20!r} MiB ({(peak - base) / 2**20!r} MiB above the "
+          f"{base / 2**20!r} MiB held before the chain) on {card}")
+
+
+def mapped_block(elev):
+    """Top-left (r0, c0) of a PP_BLOCK square centred on the mapped cells,
+    PP_MARGIN cells clear of the map edge."""
+    rows, cols = torch.nonzero(torch.isfinite(elev), as_tuple=True)
+    H, W = elev.shape
+    out = []
+    for idx, n in ((rows, H), (cols, W)):
+        centre = int(idx.float().median().item())
+        out.append(min(max(centre - PP_BLOCK // 2, PP_MARGIN), n - PP_BLOCK - PP_MARGIN))
+    return out
+
+
+def phase_postprocess(card, flagship_state, global_state):
+    """The chain on the card against the CPU on the same layers, with its
+    cost per chain at 150x150 and at 2000x2000."""
+    pp = postprocess_config()
+    names = ("elevation", "upper_bound", "lower_bound")
+
+    geom = flagship_geom()
+    layers = [flagship_state.layers[k] for k in names]
+    torch.cuda.synchronize()
+    k1.launches = k4.launches = 0
+    gpu_out = run_chain(geom, pp, layers)
+    torch.cuda.synchronize()
+    print(f"postprocess 150x150: K1 launches {k1.launches}, K4 launches {k4.launches} "
+          "(the chain is plain PyTorch)")
+    cpu_out = run_chain(geom, pp, [t.cpu() for t in layers])
+    compare_chain("postprocess 150x150", cpu_out, gpu_out)
+    if int(torch.isfinite(gpu_out["slope"]).sum()) < 15000:
+        raise AssertionError("postprocess 150x150: too few feature cells")
+    time_chain("postprocess 150x150", geom, pp, layers, card)
+
+    ggeom = global_geom()
+    layers = [global_state.layers[k] for k in names]
+    gpu_out = run_chain(ggeom, pp, layers)
+    r0, c0 = mapped_block(layers[0])
+    m, b = PP_MARGIN, PP_BLOCK
+    crop = [t[r0 - m:r0 + b + m, c0 - m:c0 + b + m].cpu() for t in layers]
+    cgeom = fd.GridGeometry(b + 2 * m, b + 2 * m, ggeom.resolution)
+    cpu_out = {k: v[m:-m, m:-m] for k, v in run_chain(cgeom, pp, crop).items()}
+    gpu_block = {k: v[r0:r0 + b, c0:c0 + b] for k, v in gpu_out.items()}
+    mapped = int(torch.isfinite(gpu_block["elevation"]).sum())
+    print(f"postprocess 2000x2000: compared the {b}x{b} block at ({r0}, {c0}), "
+          f"{mapped} mapped cells; the CPU ran a {b + 2 * m}x{b + 2 * m} crop")
+    if mapped < 50000:
+        raise AssertionError("postprocess 2000x2000: the block holds too few mapped cells")
+    compare_chain("postprocess 2000x2000 block", cpu_out, gpu_block)
+    for k, v in gpu_out.items():
+        if tuple(v.shape) != ggeom.shape:
+            raise AssertionError(f"postprocess 2000x2000 {k}: shape {tuple(v.shape)}")
+    time_chain("postprocess 2000x2000", ggeom, pp, layers, card, top=12)
+
+
+def lidar_scene(rng, n):
+    """The reference's raycast parity scene (tests/test_kernels_parity.py):
+    ground points out to 8 m around the origin, 10% masked."""
+    ang = rng.uniform(0, 2 * np.pi, n)
+    rad = rng.uniform(0.3, 8.0, n)
+    x, y = rad * np.cos(ang), rad * np.sin(ang)
+    z = 0.3 * np.sin(x) * np.cos(y) + rng.normal(0, 0.03, n) - 1.0
+    mask = rng.uniform(size=n) > 0.1
+    return np.column_stack([x, y, z]).astype(np.float32), mask
+
+
+def phase_sampled(card, dev="cuda"):
+    """K1 + K4 (the polar path) against the sampled oracle on the card, then
+    a sampled-method session, card against CPU."""
+    dev = torch.device(dev)
+    geom = fd.GridGeometry.from_length(12.0, 12.0, 0.1)
+    rng = np.random.default_rng(42)
+    xyz, mask = lidar_scene(rng, 4000)
+    xyz, mask = torch.tensor(xyz, device=dev), torch.tensor(mask, device=dev)
+    pos = torch.zeros(2, device=dev)
+    l1, l4 = k1.launches, k4.launches
+    origin = torch.tensor([0.3, -0.2, 0.8], device=dev)
+    h_p, t_p = raycast.ray_min_height_polar(geom, pos, xyz, mask, origin)
+    h_s, t_s = raycast.ray_min_height_sampled(geom, pos, xyz, mask, origin, num_samples=1200)
+    both = t_p & t_s
+    diff = (h_p[both] - h_s[both]).cpu().numpy()
+    p90 = float(np.percentile(np.abs(diff), 90))
+    high = float((diff > 0.15).mean())
+    origin = torch.tensor([0.0, 0.0, 0.8], device=dev)
+    _, t_p0 = raycast.ray_min_height_polar(geom, pos, xyz, mask, origin)
+    _, t_s0 = raycast.ray_min_height_sampled(geom, pos, xyz, mask, origin, num_samples=1200)
+    covered = float(t_p0[t_s0].float().mean())
+    torch.cuda.synchronize()
+    print(f"sampled oracle vs polar (K1 + K4 on the card, {k1.launches - l1} / "
+          f"{k4.launches - l4} launches): {int(both.sum())} cells both touch, p90 "
+          f"|polar - sampled| {p90!r} m (< 0.1), share > 0.15 m above {high!r} (< 0.04), "
+          f"polar covers {covered!r} of the sampled cells (> 0.97)")
+    if (k1.launches - l1, k4.launches - l4) != (2, 2):
+        raise AssertionError("the polar path did not run K1 and K4")
+    if int(both.sum()) <= 1000 or not (p90 < 0.1 and high < 0.04 and covered > 0.97):
+        raise AssertionError("the polar path fails the sampled-oracle properties")
+
+    geom = flagship_geom()
+    cfg = flagship_config()
+    cfg.raycasting.method = "sampled"
+    scans, T_bs, poses = make_session(5, seed=23)
+    gpu, _, _ = drive("sampled flagship", dev, geom, cfg, scans, T_bs, poses,
+                      per_scan=0)
+    check_map("sampled flagship", geom, gpu, "kalman", 17000)
+    cpu, _ = run_session("cpu", geom, cfg, scans, T_bs, poses)
+    check_parity("sampled flagship", cpu.state, gpu.state)
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -524,6 +746,12 @@ def main() -> int:
         ms = chain_ms(g, cfg, seed, lambda n, s, fn=fn: fn(n, s))
         print(f"{what}: {ms!r} ms/scan over a {CHAIN}-scan chain "
               f"(FastDEM.integrate, CUDA events) on {card}")
+
+    # ---- 11. postprocess chain, card against CPU, and its cost ----
+    phase_postprocess(card, gpu.state, ggpu.state)
+
+    # ---- 12. the sampled raycast ----
+    phase_sampled(card)
 
     print(json.dumps({"kernels": [
         {

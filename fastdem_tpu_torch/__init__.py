@@ -1,11 +1,13 @@
 """fastdem_tpu_torch: the FastDEM elevation mapper on PyTorch and CUDA.
 
 The PyTorch port of ``fastdem_tpu`` (which stays the reference it is
-tested against). It imports ``torch`` and never JAX. This slice runs the
-non-windowed integrate path -- LiDAR / RGB-D / constant noise models, the
-row-scatter rasterizer, the Kalman estimator and the polar raycast, whose
-dense field tail is the hand-written CUDA kernel K1 (ops/polar_field.py)
-on a CUDA device.
+tested against). It imports ``torch`` and never JAX. It runs the
+integrate path -- LOCAL and windowed GLOBAL maps, LiDAR / RGB-D /
+constant noise models, the row-scatter rasterizer, the Kalman and P^2
+estimators, and the polar raycast, whose dense field tail and per-cell
+lookup are the hand-written CUDA kernels K1 (ops/polar_field.py) and K4
+(ops/resample.py) on a CUDA device, or the sampled raycast -- and the
+post-processing chain (``postprocess.apply_postprocess_fn``).
 
     import fastdem_tpu_torch as fd
     geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1)
@@ -23,6 +25,7 @@ from fastdem_tpu_torch.config import (  # noqa: F401
     Config,
     EstimationType,
     MappingMode,
+    PostProcessConfig,
     SensorType,
     parse_config,
 )

@@ -56,6 +56,9 @@ SensorModelConfig = _shared.SensorModelConfig
 RaycastingConfig = _shared.RaycastingConfig
 Config = _shared.Config
 PostProcessConfig = _shared.PostProcessConfig
+InpaintingConfig = _shared.InpaintingConfig
+UncertaintyFusionConfig = _shared.UncertaintyFusionConfig
+FeatureExtractionConfig = _shared.FeatureExtractionConfig
 parse_config = _shared.parse_config
 validate = _shared.validate
 load_config = _shared.load_config

@@ -333,8 +333,6 @@ def _build_phases(
         )
     if spmd_blocks is not None:
         raise _not_ported("spmd_blocks (sharded maps)", "section 1, item 19")
-    if cfg.raycasting.enabled and cfg.raycasting.method == "sampled":
-        raise _not_ported('raycasting.method="sampled"', "section 1, item 13")
     sensor = create_sensor_model(cfg.sensor_model)
     pf = cfg.point_filter
     local_mode = cfg.mapping.mode == MappingMode.LOCAL
@@ -368,7 +366,14 @@ def _build_phases(
         upd_wr, upd_wc = min(geom.rows, _wcells), min(geom.cols, _wcells)
     else:
         upd_wr, upd_wc = geom.rows, geom.cols
-    windowed = window_update is not False and 2 * upd_wr * upd_wc <= geom.num_cells
+    # The sampled raycast scatters into the full map: it turns the window
+    # off, as in the reference.
+    sampled = cfg.raycasting.enabled and cfg.raycasting.method == "sampled"
+    windowed = (
+        window_update is not False
+        and 2 * upd_wr * upd_wc <= geom.num_cells
+        and not sampled
+    )
     eff_cells = upd_wr * upd_wc if windowed else geom.num_cells
     if eff_cells > (1 << 19):
         raise _not_ported(
@@ -376,7 +381,7 @@ def _build_phases(
             "unwindowed map or window",
             "section 3, the rows->packed note",
         )
-    if cfg.raycasting.enabled:
+    if cfg.raycasting.enabled and not sampled:
         # The per-cell lookups scale with the map: on maps larger than the
         # ray range, only a sensor-centred window is resampled (the update
         # window when that is engaged).
@@ -447,7 +452,15 @@ def _build_phases(
         # ---- 3. Rasterize, with the polar slope scatter riding along ----
         extra = None
         ray_window = None
-        if cfg.raycasting.enabled:
+        ray = None
+        if sampled:
+            # Exactness first: every ray sampled S times and scatter-minned
+            # into the full map; no K1 / K4.
+            origin_inside = geom.is_inside(position, sensor_origin[:2])
+            ray = raycast.ray_min_height_sampled(
+                geom, position, xyz_world, keep & origin_inside, sensor_origin
+            )
+        elif cfg.raycasting.enabled:
             origin_inside = geom.is_inside(position, sensor_origin[:2])
             extra = raycast.polar_scatter_spec(
                 geom, position, xyz_world, keep & origin_inside,
@@ -481,8 +494,7 @@ def _build_phases(
 
         # ---- 4. The ray field (K1) and its per-cell lookup (K4); with
         # exact_window one read per cell covers the whole azimuth window ----
-        ray = None
-        if cfg.raycasting.enabled:
+        if cfg.raycasting.enabled and not sampled:
             smeared = raycast.polar_smeared_field(
                 geom, sensor_origin, obs.extra,
                 ray_num_azimuth, ray_range_bin_factor, ray_max_range,

@@ -27,11 +27,13 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
-def fma_f32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     """a * b + c with one rounding to float32 (the product is exact in
-    float64; the sum rounds in float64, then to float32)."""
+    float64; the sum rounds in float64, then to float32). ``b`` and ``c``
+    may be Python floats holding float32 values."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
     c = c.double() if isinstance(c, torch.Tensor) else c
-    return (a.double() * b.double() + c).float()
+    return (a.double() * b + c).float()
 
 
 def sum_sq3(v: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,9 @@ origin_z + d * min(slope of rays alive at d):
 ``apply_raycasting`` then adds observed evidence, resolves ghost cells and
 clears them, as the reference does; ``polar_resample`` and
 ``ray_min_height_polar`` are the standalone forms of steps 1-3.
+``ray_min_height_sampled`` is the exactness-first alternative
+(``raycasting.method = "sampled"``): every ray sampled S times and the
+sample heights scatter-minned per cell, the polar path's oracle.
 """
 
 from __future__ import annotations
@@ -303,6 +306,50 @@ def ray_min_height_polar(
     )
 
 
+def ray_min_height_sampled(
+    geom: GridGeometry,
+    position: torch.Tensor,
+    xyz: torch.Tensor,
+    ray_mask: torch.Tensor,
+    sensor_origin: torch.Tensor,
+    num_samples: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-cell minimum ray height by sampling each ray S times up to its
+    map exit and scatter-minning the sample heights (the polar path's
+    exactness oracle). Returns (min_height [H, W], touched).
+
+    S defaults to 2 * (rows + cols). The arithmetic is the reference's
+    compiled form: the sample fractions multiply by the f32 reciprocal of
+    S, and each sample coordinate o + t * (p - o) is one FMA.
+    """
+    S = num_samples or 2 * (geom.rows + geom.cols)
+    ncell = geom.num_cells
+    dev = xyz.device
+    dz = xyz[:, 2] - sensor_origin[2]
+    dxy = xyz[:, :2] - sensor_origin[:2]
+    ray_len_2d = sqrt_f32(fma_f32(dxy[:, 1], dxy[:, 1], dxy[:, 0] * dxy[:, 0]))
+    ray_valid = ray_mask & (dz < 0.0) & (ray_len_2d >= 1e-4)
+
+    t_exit = _clip_exit(geom, position, sensor_origin, xyz)
+    frac = (torch.arange(S, dtype=torch.float32, device=dev) + 1.0) * recip_f32(S)
+    t = t_exit[:, None] * frac[None, :]  # [N, S]
+    sx = fma_f32(t, dxy[:, 0:1], sensor_origin[0])
+    sy = fma_f32(t, dxy[:, 1:2], sensor_origin[1])
+    sh = fma_f32(t, dz[:, None], sensor_origin[2])
+    del t
+    sids, s_inside = geom.cell_id_of(position, torch.stack([sx, sy], dim=-1))
+    s_valid = ray_valid[:, None] & s_inside
+    sids = torch.where(s_valid, sids, ncell)
+    table = torch.full((ncell + 1,), _INF, dtype=torch.float32, device=dev)
+    table.scatter_reduce_(
+        0, sids.reshape(-1).long(), torch.where(s_valid, sh, _INF).reshape(-1),
+        "amin", include_self=True,
+    )
+    ray_min = table[:ncell].reshape(geom.shape)
+    touched = torch.isfinite(ray_min)
+    return torch.where(touched, ray_min, np.nan), touched
+
+
 def apply_raycasting(
     geom: GridGeometry,
     state: GridMapState,
@@ -312,6 +359,7 @@ def apply_raycasting(
     cfg,
     obs_count: Optional[torch.Tensor] = None,
     method: str = "polar",
+    num_samples: Optional[int] = None,
     num_azimuth: int = 2048,
     range_bin_factor: float = 0.5,
     max_range: Optional[float] = None,
@@ -326,14 +374,13 @@ def apply_raycasting(
     (the scan in the world frame) when absent. ``ray_min_touched``: the
     precomputed (min ray height, touched) fields; otherwise they come from
     ``polar_table`` (a pre-scattered [R*A] min-slope table) or from the
-    scan itself. ``xyz`` / ``scan_mask`` may be None when both fields are
-    given, as in the pipeline.
+    scan itself: by the polar field, or with ``method="sampled"`` by
+    ``ray_min_height_sampled`` (``num_samples`` per ray). ``xyz`` /
+    ``scan_mask`` may be None when both fields are given, as in the
+    pipeline.
     """
-    if method != "polar":
-        raise NotImplementedError(
-            f'raycasting method={method!r} is not ported to fastdem_tpu_torch '
-            "yet (ROADMAP section 1, item 13)"
-        )
+    if method not in ("polar", "sampled"):
+        raise ValueError(f"unknown raycasting method: {method!r}")
     origin_inside = geom.is_inside(state.position, sensor_origin[:2])
     active = None if scan_mask is None else scan_mask & origin_inside
 
@@ -361,10 +408,14 @@ def apply_raycasting(
     # diagnostic layer.
     if ray_min_touched is not None:
         ray_min, ray_touched = ray_min_touched
-    elif polar_table is not None:
+    elif method == "polar" and polar_table is not None:
         ray_min, ray_touched = polar_resample(
             geom, state.position, sensor_origin, polar_table, num_azimuth,
             range_bin_factor, max_range, impl=cfg.polar_field_impl,
+        )
+    elif method == "sampled":
+        ray_min, ray_touched = ray_min_height_sampled(
+            geom, state.position, xyz, active, sensor_origin, num_samples
         )
     else:
         ray_min, ray_touched = ray_min_height_polar(

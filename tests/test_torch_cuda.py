@@ -7,9 +7,10 @@ On a machine with a card and no JAX, run them without the suite's conftest
 
 K1 against its plain twin (identical finite sets, heights within 4e-6),
 K4 against its plain twin (bit for bit in both forms, NaN propagated), their
-launch counters, the wrappers' input checks, and small sessions (flagship,
+launch counters, the wrappers' input checks, small sessions (flagship,
 windowed GLOBAL with Kalman and P^2) on the card against the same sessions
-on the CPU.
+on the CPU, and the post-processing chain and the sampled raycast on the
+card against the CPU.
 """
 
 import numpy as np
@@ -188,3 +189,62 @@ def test_windowed_session_on_card(cuda, est):
         np.testing.assert_array_equal(win.layers[name].cpu().numpy(), ref.cpu().numpy(),
                                       err_msg=name)
     assert_states_agree(windowed_session("cpu", est, None), win)
+
+
+def postprocess_inputs(n, seed=6):
+    rng = np.random.default_rng(seed)
+    x = np.arange(n)[:, None] * 0.1
+    elev = (0.3 * np.sin(x) * np.cos(0.7 * np.arange(n)[None, :] * 0.1)
+            + rng.normal(0, 0.01, (n, n))).astype(np.float32)
+    elev[rng.random((n, n)) < 0.1] = np.nan
+    var = np.abs(rng.normal(0.01, 0.005, (n, n))).astype(np.float32)
+    return elev, elev + var, elev - var
+
+
+def test_postprocess_chain_on_card(cuda):
+    """The chain and the median on the card equal the CPU's bit for bit:
+    every transcendental runs in double and rounds to the same f32."""
+    from fastdem_tpu_torch.postprocess import apply_postprocess_fn, smooth_median
+
+    pp = fd.PostProcessConfig()
+    pp.uncertainty_fusion.enabled = True
+    pp.inpainting.enabled = True
+    pp.feature_extraction.enabled = True
+    run = apply_postprocess_fn(fd.GridGeometry(96, 96, 0.1), pp)
+    layers = postprocess_inputs(96)
+    got = run(*(torch.tensor(a, device=cuda) for a in layers))
+    ref = run(*(torch.tensor(a) for a in layers))
+    got["smoothed"] = smooth_median(got["elevation"], 3, 5)
+    ref["smoothed"] = smooth_median(ref["elevation"], 3, 5)
+    assert got["slope"].device.type == "cuda"
+    for name, r in ref.items():
+        g, r = got[name].cpu().numpy(), r.numpy()
+        # NaN payloads differ between the devices; NaN sets must not.
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(r), err_msg=name)
+        fin = ~np.isnan(r)
+        np.testing.assert_array_equal(g[fin].view(np.int32), r[fin].view(np.int32),
+                                      err_msg=name)
+    assert torch.isfinite(ref["slope"]).sum() > 5000
+
+
+def test_sampled_raycast_on_card(cuda):
+    """The sampled raycast on the card equals the CPU's; it launches neither
+    K1 nor K4."""
+    geom = fd.GridGeometry.from_length(12.0, 12.0, 0.1)
+    rng = np.random.default_rng(8)
+    n = 4000
+    ang, rad = rng.uniform(0, 2 * np.pi, n), rng.uniform(0.3, 8.0, n)
+    xyz = np.column_stack([rad * np.cos(ang), rad * np.sin(ang),
+                           rng.normal(-1.0, 0.03, n)]).astype(np.float32)
+    mask = rng.uniform(size=n) > 0.1
+    args = (np.zeros(2, np.float32), xyz, mask, np.array([0.3, -0.2, 0.8], np.float32))
+    before = (k1.launches, k4.launches)
+    h, t = raycast.ray_min_height_sampled(geom, *(torch.tensor(a, device=cuda) for a in args),
+                                          num_samples=1200)
+    torch.cuda.synchronize()
+    assert (k1.launches, k4.launches) == before
+    h_ref, t_ref = raycast.ray_min_height_sampled(geom, *(torch.tensor(a) for a in args),
+                                                  num_samples=1200)
+    np.testing.assert_array_equal(t.cpu().numpy(), t_ref.numpy())
+    np.testing.assert_array_equal(h.cpu().numpy(), h_ref.numpy())
+    assert t_ref.sum() > 10000

@@ -32,6 +32,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys; import fastdem_tpu_torch as fd; "
         "import fastdem_tpu_torch.ops.polar_field, fastdem_tpu_torch.interop; "
+        "import fastdem_tpu_torch.cloud.pca, fastdem_tpu_torch.postprocess.stencil, "
+        "fastdem_tpu_torch.postprocess.inpainting, fastdem_tpu_torch.postprocess.smoothing, "
+        "fastdem_tpu_torch.postprocess.uncertainty_fusion, fastdem_tpu_torch.postprocess.features; "
+        "from fastdem_tpu_torch.postprocess import apply_postprocess_fn; "
         "fd.FastDEM(fd.GridGeometry.from_length(2.0, 2.0, 0.1), fd.Config(), device='cpu'); "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'fastdem_tpu.')) or m == 'fastdem_tpu'); "
         "print(bad); sys.exit(1 if bad else 0)"

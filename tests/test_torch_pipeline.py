@@ -265,7 +265,6 @@ def test_unported_configurations_raise():
         return c
 
     raising = [
-        (geom, cfg_with(raycasting__method="sampled"), "section 1, item 13"),
         # More than 2^19 cells unwindowed: the reference switches rasterizer.
         (ft.GridGeometry.from_length(80.0, 80.0, 0.1),
          cfg_with(mapping__mode=ft.MappingMode.GLOBAL), "section 3"),
@@ -279,13 +278,17 @@ def test_unported_configurations_raise():
             ft.build_integrate(g, c, device="cpu")
 
     # What earlier raised now builds and integrates one scan: P^2, the
-    # windowed update (a 2 m range filter on a 60 m GLOBAL map) and the
-    # windowed resample alone (an explicit ray range below the map).
+    # windowed update (a 2 m range filter on a 60 m GLOBAL map), the
+    # windowed resample alone (an explicit ray range below the map) and the
+    # sampled raycast, which turns the window off.
     rng = np.random.default_rng(0)
     now_ported = [
         (geom, cfg_with(mapping__estimation_type=ft.EstimationType.P2_QUANTILE), False),
         (ft.GridGeometry.from_length(60.0, 60.0, 0.2),
          cfg_with(mapping__mode=ft.MappingMode.GLOBAL, point_filter__range_max=2.0), True),
+        (ft.GridGeometry.from_length(60.0, 60.0, 0.2),
+         cfg_with(mapping__mode=ft.MappingMode.GLOBAL, point_filter__range_max=2.0,
+                  raycasting__method="sampled"), False),
         (geom, cfg_with(mapping__mode=ft.MappingMode.GLOBAL, raycasting__max_range=3.0),
          False),
     ]

@@ -200,6 +200,18 @@ def test_apply_raycasting_standalone_forms_match_jax(rng, form):
         close = np.isclose(got, ref, rtol=0, atol=4e-6, equal_nan=True)
         assert close.mean() >= 1.0 - LOOKUP_SHARE, name
     assert (out_t.layers["ghost_removal"] == 1.0).sum() > 20
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="unknown raycasting method"):
         ray_t.apply_raycasting(gt, st, None, None, torch.tensor(ORIGIN), cfg_t,
-                               method="sampled")
+                               method="bogus")
+    if form == "scan":
+        # The sampled method, against the same jitted form: identical layers.
+        out_j = jax.jit(lambda s, x, m, o: ray_j.apply_raycasting(
+            gj, s, x, m, o, cfg_j, method="sampled", num_samples=240))(
+            sj, xyz, mask, ORIGIN)
+        out_t = ray_t.apply_raycasting(
+            gt, st, torch.tensor(xyz), torch.tensor(mask), torch.tensor(ORIGIN), cfg_t,
+            method="sampled", num_samples=240)
+        for name, ref in out_j.layers.items():
+            np.testing.assert_array_equal(out_t.layers[name].numpy(), np.asarray(ref),
+                                          err_msg=name)
+        assert (out_t.layers["ghost_removal"] == 1.0).sum() > 20
