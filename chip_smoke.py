@@ -7,14 +7,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   1. device   -- the card's name and power limit (nvidia-smi).
   2. build    -- build K1 (csrc/polar_field.cu) and K4 (csrc/resample.cu),
                  one nvcc each, in parallel.
-  3. K1       -- the kernel against its plain PyTorch twin on the card at
-                 the three polar-field shapes of the reference's kernel
-                 test and the GLOBAL shape [962, 2048]; device times
-                 (torch.profiler) at the flagship and GLOBAL shapes.
+  3. K1       -- the kernel against its plain PyTorch twin on the card, bit
+                 for bit, at the three polar-field shapes of the
+                 reference's kernel test, the GLOBAL shape [962, 2048] and
+                 edge shapes (folds of 1 and 10 rows, A = 1024, R = 517, a
+                 tall [4096, 1024] field walked in row chunks); device
+                 times (torch.profiler) at the flagship and GLOBAL shapes,
+                 the column and the row kernel apart, beside the bound and
+                 its share.
   4. K4       -- the per-cell lookup against its twin, one and two reads,
                  at [515, 2048] x 150x150 cells and [962, 2048] x 484x484
-                 cells: bit-identical, same NaN set; device times at
-                 GLOBAL.
+                 cells: bit-identical, same NaN set; then the main path's
+                 form, whose kernel also computes the indices, against its
+                 twin (resample_indices + resample_plain) on the flagship's
+                 whole map and a GLOBAL window with device offsets; device
+                 times of both forms.
   5. exact    -- polar_resample with exact_window (K1-exact + K4 one read)
                  against the two-read form (K1 + K4 two reads) on a
                  scattered LiDAR table: bitwise-equal heights and touched.
@@ -33,7 +40,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   9. p2       -- the flagship configuration with the P^2 estimator, card
                  against CPU, terrain check.
  10. time     -- ms/scan over 32-scan chains (CUDA events): GLOBAL Kalman,
-                 flagship P^2, flagship Kalman.
+                 flagship P^2, flagship Kalman; device events and device ms
+                 per scan (torch.profiler over a few scans) on each, beside
+                 the device events one resample_indices call makes.
  11. postprocess -- the post-processing chain (uncertainty fusion,
                  inpainting, PCA features) plus the 3x3 median on the
                  flagship map of phase 6 (150x150) and on the GLOBAL map of
@@ -85,7 +94,14 @@ SPREAD = 10.0
 GLOBAL_SPREAD = 18.0
 GLOBAL_RANGE = 20.0
 NOISE_SIGMA = 0.01
-K1_ATOL = 4e-6
+# The bound of a kernel: the larger of its bytes over the memory rate and
+# its operations over the f32 rate outside the tensor cores (NVIDIA H100
+# SXM data sheet, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per cell of K4's index math (two atan2f and one log2f
+# counted at ~20 each) and its lookup.
+K4_LOOKUP_OPS = 100
 # GPU vs CPU agreement: atan2 differs in the last ulp between the two
 # devices, which can move a ray or a cell across a polar-bin boundary.
 PARITY_RTOL = 1e-5
@@ -105,6 +121,8 @@ PP_BLOCK = 512
 # radius 1, the features' 0.3 m disk (3 cells) and the 3x3 median.
 PP_MARGIN = 8
 PP_REPS = 5
+# Scans under the profiler for the device events per scan (phase 10).
+EVENT_SCANS = 8
 
 
 def terrain(x, y):
@@ -273,10 +291,10 @@ def cuda_median_ms(fn, reps):
 
 
 def device_profile(fn, reps, top=0):
-    """(device ms, device events) per call of ``fn``: the sum and the count
-    of the CUDA events (kernels, copies, fills) of ``reps`` calls under
-    torch.profiler, / reps. ``top`` > 0 also prints that many ops by
-    device time."""
+    """(device ms, device events, device ms by kernel name) per call of
+    ``fn``: the sum and the count of the CUDA events (kernels, copies,
+    fills) of ``reps`` calls under torch.profiler, / reps. ``top`` > 0 also
+    prints that many ops by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -289,14 +307,17 @@ def device_profile(fn, reps, top=0):
                                         max_name_column_width=50))
     total = 0.0
     count = 0
+    by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             t = getattr(e, "device_time", None)
-            total += e.cuda_time if t is None else t
+            t = e.cuda_time if t is None else t
+            total += t
             count += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + t / reps / 1000.0
     if total <= 0.0:
         raise AssertionError("the profiler recorded no device time")
-    return total / reps / 1000.0, count / reps
+    return total / reps / 1000.0, count / reps, by_name
 
 
 def device_ms(fn, reps):
@@ -305,68 +326,128 @@ def device_ms(fn, reps):
 
 
 def time_pair(what, fn_kernel, fn_plain, reps=200, plain_reps=50):
-    """(kernel, plain) device ms per call; prints them with the per-call
-    latency that CUDA events around one call see (host enqueue included)."""
+    """(kernel, plain) device ms per call, and the kernel's device ms by
+    kernel name; prints them with the per-call latency that CUDA events
+    around one call see (host enqueue included)."""
     for fn in (fn_kernel, fn_plain):
         for _ in range(5):
             fn()
     torch.cuda.synchronize()
-    ms, plain_ms = device_ms(fn_kernel, reps), device_ms(fn_plain, plain_reps)
+    ms, _, by_name = device_profile(fn_kernel, reps)
+    plain_ms = device_ms(fn_plain, plain_reps)
     lat, plain_lat = cuda_median_ms(fn_kernel, reps), cuda_median_ms(fn_plain, plain_reps)
     print(f"{what}: kernel {ms!r} ms, plain twin {plain_ms!r} ms (device time "
           f"per call, torch.profiler); per-call latency kernel {lat!r} ms, plain "
           f"{plain_lat!r} ms (median, CUDA events, host enqueue included)")
-    return ms, plain_ms
+    return ms, plain_ms, by_name
 
 
-def phase_k1():
-    """K1 against its plain twin at the reference test's three shapes and
-    the GLOBAL shape; medians at the flagship and GLOBAL shapes."""
+def bound_of(nbytes, ops):
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take for ``nbytes`` of traffic and ``ops`` f32 operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(R, A, nfold, win, exact):
+    """K1 reads scat and the window tables once and writes the field once;
+    per element it takes a suffix min, the affine height (three
+    operations), nfold - 1 fold mins and one min per azimuth pass (lvl
+    doublings, then one pass for a nonzero exact-window shift)."""
+    lvl, shift = win.lvl.cpu().numpy(), win.shift.cpu().numpy()
+    passes = int(lvl.sum()) + (int((shift > 0).sum()) if exact else 0)
+    nbytes = 2 * R * A * 4 + 2 * R * 4 + 4
+    return bound_of(nbytes, R * A * (3 + nfold) + A * passes)
+
+
+def k4_lookup_bound(cells, reads):
+    """The main path's K4 reads the field once or twice per cell (4 bytes
+    each) and writes 5 bytes per cell; the position, origin and offsets
+    are a few bytes."""
+    return bound_of(cells * (4 * reads + 5) + 28, cells * K4_LOOKUP_OPS)
+
+
+def kernel_split(by_name):
+    """(column ms, row ms) of one K1 call's device time by kernel name."""
+    col = sum(v for k, v in by_name.items() if "polar_column_kernel" in k)
+    row = sum(v for k, v in by_name.items() if "polar_row_kernel" in k)
+    return col, row
+
+
+def phase_k1(card):
+    """K1 against its plain twin, bit for bit, at the reference test's
+    three shapes, the GLOBAL shape and edge shapes; device times at the
+    flagship and GLOBAL shapes, split into the column and row kernels,
+    beside the bound."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(42)
     so = torch.tensor([0.07, -0.03, 1.2], dtype=torch.float32, device=dev)
-    max_err = 0.0
+    fgeom = flagship_geom()
     timing = {}
-    for geom, num_az, rbf, maxr, exact, label in (
+    cases = [
         (flagship_geom(), 2048, 0.25, 12.81, True, "flagship"),
         (flagship_geom(), 1024, 0.5, 9.0, True, None),
         (flagship_geom(), 2048, 0.25, 12.81, False, None),
         (global_geom(), 2048, 0.25, GLOBAL_RANGE * 1.1 + 2.0, True, "global"),
-    ):
+    ]
+    max_err = 0.0
+    shapes = []
+    for geom, num_az, rbf, maxr, exact, label in cases:
         A, R, dr = raycast.polar_dims(geom, num_az, rbf, maxr)
+        win = raycast.column_windows(geom, num_az, rbf, maxr, dev)
+        shapes.append((R, A, rbf, dr, win, exact, label))
+    # Edge shapes: folds of 1 and 10 rows, A = 1024, R = 517 (off the
+    # segment and strip sizes), and a tall field the column pass walks in
+    # chunks of rows.
+    for R, A, rbf in ((515, 2048, 1.0), (515, 2048, 0.1), (515, 1024, 0.25),
+                      (517, 2048, 0.25), (4096, 1024, 0.25)):
+        dr = fgeom.resolution * rbf
+        lvl, shift = raycast._column_windows(fgeom, A, R, dr)
+        shapes.append((R, A, rbf, dr, k1.ColumnWindows.from_numpy(lvl, shift, dev), True,
+                       None))
+    for R, A, rbf, dr, win, exact, label in shapes:
         tbl = rng.uniform(-2.0, 0.5, R * A).astype(np.float32)
         tbl[rng.random(R * A) < 0.97] = np.inf
         scat = torch.tensor(tbl, device=dev).reshape(R, A)
-        win = raycast.column_windows(geom, num_az, rbf, maxr, dev)
         nfold = int(np.ceil(1.0 / rbf))
         got = k1.polar_field_cuda(scat, win, so, dr, nfold, exact)
         ref = k1.polar_field_plain(scat, win, so, dr, nfold, exact)
         torch.cuda.synchronize()
-        got_np, ref_np = got.cpu().numpy(), ref.cpu().numpy()
-        if not np.array_equal(np.isfinite(got_np), np.isfinite(ref_np)):
-            raise AssertionError(f"K1 finite set differs at A={A} R={R} exact={exact}")
-        fin = np.isfinite(ref_np)
-        err = float(np.max(np.abs(got_np[fin] - ref_np[fin]))) if fin.any() else 0.0
-        print(f"K1 [R={R}, A={A}] exact_window={exact}: identical finite sets "
-              f"({int(fin.sum())} finite), max |diff| {err!r}")
-        if err > K1_ATOL:
-            raise AssertionError(f"K1 max |diff| {err} > {K1_ATOL}")
+        got, ref = got.cpu().numpy(), ref.cpu().numpy()
+        same_fin = np.array_equal(np.isfinite(got), np.isfinite(ref))
+        fin = np.isfinite(ref)
+        err = float(np.max(np.abs(got[fin] - ref[fin]))) if fin.any() else 0.0
+        bits = np.array_equal(got.view(np.int32), ref.view(np.int32))
+        print(f"K1 [R={R}, A={A}] nfold={nfold} exact_window={exact}: identical finite "
+              f"sets {same_fin} ({int(fin.sum())} finite), max |diff| {err!r}, "
+              f"bit-identical {bits}")
+        if not (same_fin and bits and err == 0.0):
+            raise AssertionError(f"K1 differs from its twin at R={R} A={A}")
         max_err = max(max_err, err)
         if label:
-            timing[label] = time_pair(
+            bound, by = k1_bound(R, A, nfold, win, exact)
+            ms, plain_ms, by_name = time_pair(
                 f"K1 time at [{R}, {A}], L2-warm input",
                 lambda: k1.polar_field_cuda(scat, win, so, dr, nfold, exact),
                 lambda: k1.polar_field_plain(scat, win, so, dr, nfold, exact),
             )
+            col, row = kernel_split(by_name)
+            print(f"K1 [{R}, {A}]: column kernel {col!r} ms, row kernel {row!r} ms "
+                  f"({row / ms!r} of K1); bound {bound!r} ms ({by}), share of the bound "
+                  f"{bound / ms!r}; on {card}")
+            timing[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                             "bound_by": by}
     return max_err, timing
 
 
-def phase_k4():
-    """K4 against its plain twin, both forms, at the flagship and GLOBAL
-    shapes: bit-identical heights, the same touched and NaN sets."""
+def phase_k4(card):
+    """K4 against its plain twin in both forms: the lookup of given indices
+    (one and two reads, flagship and GLOBAL shapes), then the main path's
+    lookup with its index math (the flagship's whole map, a GLOBAL window
+    with device offsets): bit-identical heights, the same touched and NaN
+    sets; device times."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(43)
-    timing = {}
     max_err = 0.0
     for R, A, cells in ((515, 2048, 150), (962, 2048, 484)):
         field = rng.uniform(-2.0, 0.5, (R, A)).astype(np.float32)
@@ -383,26 +464,69 @@ def phase_k4():
             h, t = k4.resample_cuda(fld, a0, second, r, in_range)
             h_ref, t_ref = k4.resample_plain(fld, a0, second, r, in_range)
             torch.cuda.synchronize()
-            h_np, h_ref_np = h.cpu().numpy(), h_ref.cpu().numpy()
-            same_bits = np.array_equal(h_np.view(np.int32), h_ref_np.view(np.int32))
-            same_nan = np.array_equal(np.isnan(h_np), np.isnan(h_ref_np))
-            same_touched = torch.equal(t, t_ref)
-            print(f"K4 [R={R}, A={A}] {cells}x{cells} cells, {reads} read(s): "
-                  f"bit-identical {same_bits}, same NaN set {same_nan}, same "
-                  f"touched {same_touched} ({int(t.sum())} touched)")
-            if not (same_bits and same_nan and same_touched):
-                raise AssertionError("K4 differs from its plain twin")
-            fin = np.isfinite(h_ref_np)
-            if fin.any():
-                max_err = max(max_err, float(np.max(np.abs(h_np[fin] - h_ref_np[fin]))))
-            if R == 962:
-                timing[reads] = time_pair(
-                    f"K4 time at [{R}, {A}] x {cells}x{cells} cells, {reads} "
-                    "read(s), L2-warm field",
+            check_same(f"K4 [R={R}, A={A}] {cells}x{cells} cells, {reads} read(s), "
+                       "indices given", (h, t), (h_ref, t_ref))
+            if R == 962 and reads == 1:
+                time_pair(
+                    f"K4 (indices given) time at [{R}, {A}] x {cells}x{cells} cells, "
+                    "1 read, L2-warm field",
                     lambda: k4.resample_cuda(fld, a0, second, r, in_range),
                     lambda: k4.resample_plain(fld, a0, second, r, in_range),
                 )
+
+    timing = {}
+    for label, geom, maxr, pos, so, win in (
+        ("flagship", flagship_geom(), 12.81, [0.2, -0.1], [0.31, -0.17, 1.05], None),
+        ("global", global_geom(), GLOBAL_RANGE * 1.1 + 2.0, [0.0, 0.0],
+         [-10.37, 5.21, 1.0], 484),
+    ):
+        lk = raycast.polar_lookup(geom, 2048, 0.25, maxr)
+        field = rng.uniform(-2.0, 0.5, (lk.R, lk.A)).astype(np.float32)
+        field[rng.random(field.shape) < 0.5] = np.inf
+        field[rng.random(field.shape) < 0.001] = np.nan
+        fld = torch.tensor(field, device=dev)
+        pos_t, so_t = torch.tensor(pos, device=dev), torch.tensor(so, device=dev)
+        window = None
+        if win is not None:
+            sr, sc, _ = geom.index_of(pos_t, so_t[:2])
+            r0 = torch.clamp(torch.clamp(sr, 0, geom.rows) - win // 2, 0, geom.rows - win)
+            c0 = torch.clamp(torch.clamp(sc, 0, geom.cols) - win // 2, 0, geom.cols - win)
+            window = (r0, c0, win, win)
+        cells = win * win if win else geom.num_cells
+        for two in (False, True):
+            got = k4.resample_lookup_cuda(fld, lk, pos_t, so_t, window, two)
+            ref = k4.resample_lookup_plain(fld, lk, pos_t, so_t, window, two)
+            torch.cuda.synchronize()
+            max_err = max(max_err, check_same(
+                f"K4 with its index math, {label} ({cells} cells"
+                f"{', window' if window else ', whole map'}), {1 + two} read(s)", got, ref))
+        bound, by = k4_lookup_bound(cells, 1)
+        ms, plain_ms, _ = time_pair(
+            f"K4 with its index math, time at [{lk.R}, {lk.A}] x {cells} cells, 1 read, "
+            "L2-warm field",
+            lambda: k4.resample_lookup_cuda(fld, lk, pos_t, so_t, window, False),
+            lambda: k4.resample_lookup_plain(fld, lk, pos_t, so_t, window, False),
+        )
+        print(f"K4 with its index math, {label}: bound {bound!r} ms ({by}), share of the "
+              f"bound {bound / ms!r}; on {card}")
+        timing[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
     return max_err, timing
+
+
+def check_same(what, got, ref):
+    """Fails unless (ray_min, touched) equal the twin's bit for bit, with
+    the same NaN and touched sets; returns max |diff| on finite cells."""
+    (h, t), (h_ref, t_ref) = got, ref
+    h_np, h_ref_np = h.cpu().numpy(), h_ref.cpu().numpy()
+    same_bits = np.array_equal(h_np.view(np.int32), h_ref_np.view(np.int32))
+    same_nan = np.array_equal(np.isnan(h_np), np.isnan(h_ref_np))
+    same_touched = torch.equal(t, t_ref)
+    print(f"{what}: bit-identical {same_bits}, same NaN set {same_nan}, same touched "
+          f"{same_touched} ({int(t.sum())} touched)")
+    if not (same_bits and same_nan and same_touched and int(t.sum()) > 0):
+        raise AssertionError(f"{what}: K4 differs from its plain twin")
+    fin = np.isfinite(h_ref_np)
+    return float(np.max(np.abs(h_np[fin] - h_ref_np[fin]))) if fin.any() else 0.0
 
 
 def phase_exact_window(dev="cuda"):
@@ -482,6 +606,48 @@ def chain_ms(geom, cfg, seed, session_fn):
     return start.elapsed_time(end) / CHAIN
 
 
+def scan_profile(geom, cfg, seed, session_fn, scans=EVENT_SCANS):
+    """(device events, device ms) per scan through FastDEM.integrate, under
+    torch.profiler over ``scans`` scans after 8 warm-up scans."""
+    scans_np, T_bs, poses = session_fn(scans + 8, seed)
+    clouds = [fd.cloud.from_numpy(scans_np[k], frame_id="lidar", device="cuda")
+              for k in range(scans + 8)]
+    mapper = fd.FastDEM(geom, cfg, device="cuda")
+    for k in range(8):
+        mapper.integrate(clouds[k], T_bs, poses[k])
+    torch.cuda.synchronize()
+    it = iter(range(8, scans + 8))
+
+    def one_scan():
+        k = next(it)
+        mapper.integrate(clouds[k], T_bs, poses[k])
+
+    ms, events, _ = device_profile(one_scan, scans)
+    return events, ms
+
+
+def resample_indices_events():
+    """Device events of one resample_indices call (the index math that K4
+    now does in its kernel) on the flagship map and on the GLOBAL window."""
+    dev = torch.device("cuda")
+    out = {}
+    for label, geom, maxr, win in (("flagship", flagship_geom(), 12.81, None),
+                                   ("global window", global_geom(),
+                                    GLOBAL_RANGE * 1.1 + 2.0, 484)):
+        pos = torch.zeros(2, device=dev)
+        so = torch.tensor([-10.37, 5.21, 1.0], device=dev)
+        window = None
+        if win is not None:
+            r0 = torch.tensor(758, dtype=torch.int32, device=dev)
+            window = (r0, r0.clone(), win, win)
+        fn = (lambda: raycast.resample_indices(geom, pos, so, 2048, 0.25, maxr,
+                                               window=window))
+        fn()
+        torch.cuda.synchronize()
+        out[label] = device_profile(fn, 5)[1]
+    return out
+
+
 def postprocess_config():
     """The chain as the reference's benchmark runs it: uncertainty fusion,
     inpainting and feature extraction, default parameters."""
@@ -541,7 +707,7 @@ def time_chain(what, geom, pp, layers, card, top=0):
     run()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    dev_ms, events = device_profile(run, PP_REPS, top)
+    dev_ms, events, _ = device_profile(run, PP_REPS, top)
     walls = []
     for _ in range(PP_REPS):
         torch.cuda.synchronize()
@@ -696,8 +862,8 @@ def main() -> int:
             print(cuda_build.build_logs[src.name].strip())
 
     # ---- 3.-5. kernels against their twins ----
-    k1_err, k1_ms = phase_k1()
-    k4_err, k4_ms = phase_k4()
+    k1_err, k1_ms = phase_k1(card)
+    k4_err, k4_ms = phase_k4(card)
     phase_exact_window()
     torch.cuda.synchronize()
 
@@ -738,6 +904,9 @@ def main() -> int:
     check_parity("p2 flagship", pcpu.state, pgpu.state)
 
     # ---- 10. time ----
+    for label, n in resample_indices_events().items():
+        print(f"resample_indices ({label}): {n!r} device events per call, the index "
+              "math K4 now computes in its kernel")
     for what, g, cfg, seed, fn in (
         ("global kalman", ggeom, global_config(), 19, global_session_scans),
         ("flagship p2", geom, flagship_config("p2"), 11, make_session),
@@ -746,6 +915,9 @@ def main() -> int:
         ms = chain_ms(g, cfg, seed, lambda n, s, fn=fn: fn(n, s))
         print(f"{what}: {ms!r} ms/scan over a {CHAIN}-scan chain "
               f"(FastDEM.integrate, CUDA events) on {card}")
+        events, dev_ms = scan_profile(g, cfg, seed, lambda n, s, fn=fn: fn(n, s))
+        print(f"{what}: {events!r} device events per scan, {dev_ms!r} device ms per "
+              f"scan (torch.profiler over {EVENT_SCANS} scans) on {card}")
 
     # ---- 11. postprocess chain, card against CPU, and its cost ----
     phase_postprocess(card, gpu.state, ggpu.state)
@@ -753,6 +925,8 @@ def main() -> int:
     # ---- 12. the sampled raycast ----
     phase_sampled(card)
 
+    k1_main = k1_ms["flagship"]
+    k4_main = k4_ms["global"]
     print(json.dumps({"kernels": [
         {
             "name": "polar_field (K1)",
@@ -761,18 +935,24 @@ def main() -> int:
             "replaces": "fastdem_tpu/ops/pallas_polar.py:49",
             "launches": launches["K1"],
             "max_abs_err": k1_err,
-            "ms": k1_ms["flagship"][0],
-            "plain_ms": k1_ms["flagship"][1],
+            "ms": k1_main["ms"],
+            "plain_ms": k1_main["plain_ms"],
+            "bound_ms": k1_main["bound_ms"],
+            "bound_by": k1_main["bound_by"],
+            "library_ms": None,
         },
         {
-            "name": "resample (K4)",
+            "name": "resample (K4, with its index math)",
             "route": "cuda",
             "source": "fastdem_tpu_torch/csrc/resample.cu",
             "replaces": "fastdem_tpu/ops/pallas_resample.py:36",
             "launches": launches["K4"],
             "max_abs_err": k4_err,
-            "ms": k4_ms[1][0],
-            "plain_ms": k4_ms[1][1],
+            "ms": k4_main["ms"],
+            "plain_ms": k4_main["plain_ms"],
+            "bound_ms": k4_main["bound_ms"],
+            "bound_by": k4_main["bound_by"],
+            "library_ms": None,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

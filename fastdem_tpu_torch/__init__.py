@@ -14,7 +14,7 @@ post-processing chain (``postprocess.apply_postprocess_fn``).
     cfg = fd.Config()
     cfg.raycasting.enabled = True
     mapper = fd.FastDEM(geom, cfg, device="cuda")
-    mapper.integrate(fd.cloud.from_numpy(xyz, frame_id="lidar"), T_bs, T_wb)
+    mapper.integrate(fd.cloud.from_numpy(xyz, frame_id="lidar", device="cuda"), T_bs, T_wb)
 """
 
 __version__ = "0.1.0"

@@ -86,11 +86,12 @@ def from_numpy(
     timestamp_ns: int = 0,
     capacity: Optional[int] = None,
     *,
-    device="cpu",
+    device="cuda",
     **channels: np.ndarray,
 ) -> PointCloud:
-    """Build a cloud on ``device`` from host arrays, optionally padded to
-    ``capacity``. Rows with a non-finite coordinate are invalid."""
+    """Build a cloud on ``device`` (the card unless the caller names the
+    CPU) from host arrays, optionally padded to ``capacity``. Rows with a
+    non-finite coordinate are invalid."""
     dev = resolve_device(device)
     xyz = np.asarray(xyz, dtype=np.float32).reshape(-1, 3)
     n = xyz.shape[0]

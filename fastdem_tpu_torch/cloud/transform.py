@@ -9,8 +9,9 @@ import torch
 from fastdem_tpu_torch.device import resolve_device
 
 
-def make_transform(R=None, t=None, *, device="cpu") -> torch.Tensor:
-    """Assemble a 4x4 transform from a 3x3 rotation and a translation."""
+def make_transform(R=None, t=None, *, device="cuda") -> torch.Tensor:
+    """Assemble a 4x4 transform from a 3x3 rotation and a translation, on
+    ``device`` (the card unless the caller names the CPU)."""
     dev = resolve_device(device)
     T = torch.eye(4, dtype=torch.float32, device=dev)
     if R is not None:

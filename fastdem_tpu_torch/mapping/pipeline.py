@@ -398,6 +398,9 @@ def _build_phases(
         windows = raycast.column_windows(
             geom, ray_num_azimuth, ray_range_bin_factor, ray_max_range, device
         )
+        lookup = raycast.polar_lookup(
+            geom, ray_num_azimuth, ray_range_bin_factor, ray_max_range
+        )
 
     def moved_position(position, target_xy):
         # Must match gridmap.move's arithmetic exactly.
@@ -472,11 +475,6 @@ def _build_phases(
             elif (ray_wr, ray_wc) != geom.shape:
                 r0, c0 = window_at(position, sensor_origin, ray_wr, ray_wc)
                 ray_window = (r0, c0, ray_wr, ray_wc)
-            a0, a1, r_idx, ray_in_range = raycast.resample_indices(
-                geom, position, sensor_origin,
-                ray_num_azimuth, ray_range_bin_factor, ray_max_range,
-                window=ray_window,
-            )
 
         obs = raster.rasterize_scatter_rows(
             geom,
@@ -492,16 +490,18 @@ def _build_phases(
             window=upd_window,
         )
 
-        # ---- 4. The ray field (K1) and its per-cell lookup (K4); with
-        # exact_window one read per cell covers the whole azimuth window ----
+        # ---- 4. The ray field (K1) and its per-cell lookup with the index
+        # math (K4); with exact_window one read per cell covers the whole
+        # azimuth window ----
         if cfg.raycasting.enabled and not sampled:
             smeared = raycast.polar_smeared_field(
                 geom, sensor_origin, obs.extra,
                 ray_num_azimuth, ray_range_bin_factor, ray_max_range,
                 exact_window=ray_exact_window, impl=impl, windows=windows,
             )
-            ray_min, ray_touched = k4.resample(
-                smeared, a0, None if ray_exact_window else a1, r_idx, ray_in_range
+            ray_min, ray_touched = k4.resample_lookup(
+                smeared, lookup, position, sensor_origin, window=ray_window,
+                two_reads=not ray_exact_window,
             )
             if ray_window is not None and upd_window is None:
                 # Only the ray window is active: the full-map update takes

@@ -8,8 +8,8 @@ origin_z + d * min(slope of rays alive at d):
      polar table (``polar_scatter_spec``; the rasterizer runs it);
   2. the dense tail -- reverse cummin along range, in-cell fold, per-row
      azimuth smears -- is K1 (``ops/polar_field.py``);
-  3. one or two lookups per cell at its (range, azimuth)
-     (``resample_indices``), then the touched mask: K4
+  3. one or two lookups per cell at its (range, azimuth), the indices
+     computed in the same kernel, then the touched mask: K4
      (``ops/resample.py``), over the whole map or a sensor-centred window.
 
 ``apply_raycasting`` then adds observed evidence, resolves ghost cells and
@@ -37,10 +37,10 @@ from fastdem_tpu_torch.ops import resample as k4
 _INF = float("inf")
 _PI = math.pi
 
-# Azimuth half-width factor of a cell's angular footprint; resample_indices
-# and _column_windows must use the same value (the exact-window fold relies
-# on it).
-AZ_HALF_WIDTH = 0.5
+# Azimuth half-width factor of a cell's angular footprint; the per-cell
+# lookup and _column_windows must use the same value (the exact-window fold
+# relies on it).
+AZ_HALF_WIDTH = k4.AZ_HALF_WIDTH
 
 
 def layer_fills() -> Dict[str, float]:
@@ -186,15 +186,16 @@ def polar_smeared_field(
     return fn(scat, windows, sensor_origin, dr, nfold, exact_window)
 
 
-def _hypot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """hypot as the reference computes it: max * sqrt(fma(q, q, 1)) with
-    q = min / max."""
-    x, y = torch.abs(x), torch.abs(y)
-    idx_inf = torch.isposinf(x) | torch.isposinf(y)
-    hi, lo = torch.maximum(x, y), torch.minimum(x, y)
-    q = lo / torch.where(hi == 0, torch.ones_like(hi), hi)
-    out = torch.where(hi == 0, hi, hi * sqrt_f32(fma_f32(q, q, 1.0)))
-    return torch.where(idx_inf, _INF, out)
+def polar_lookup(
+    geom: GridGeometry,
+    num_azimuth: int = 2048,
+    range_bin_factor: float = 0.5,
+    max_range: Optional[float] = None,
+) -> k4.PolarLookup:
+    """The static part of the per-cell lookup into one polar geometry's
+    field (K4's host constants)."""
+    A, R, dr = polar_dims(geom, num_azimuth, range_bin_factor, max_range)
+    return k4.PolarLookup(geom, A, R, dr)
 
 
 def resample_indices(
@@ -206,53 +207,16 @@ def resample_indices(
     max_range: Optional[float] = None,
     window: Optional[Tuple] = None,
 ):
-    """Per-cell (a0, a1, r_idx, in_range) lookups into the smeared field.
-    Cells beyond the field's range bound report in_range=False.
+    """Per-cell (a0, a1, r_idx, in_range) lookups into the smeared field
+    (``ops/resample.py::lookup_indices``). Cells beyond the field's range
+    bound report in_range=False.
 
     ``window``: optional (r0, c0, wr, wc) -- only the wr x wc cells whose
     top-left cell is (r0, c0); r0 / c0 are int32 device scalars, so the
     window never costs a host sync.
     """
-    A, R, dr = polar_dims(geom, num_azimuth, range_bin_factor, max_range)
-    dev = position.device
-    if window is not None:
-        r0, c0, wr, wc = window
-        rr = r0 + torch.arange(wr, dtype=torch.int32, device=dev)
-        cc = c0 + torch.arange(wc, dtype=torch.int32, device=dev)
-    else:
-        wr, wc = geom.shape
-        rr = torch.arange(wr, dtype=torch.int32, device=dev)
-        cc = torch.arange(wc, dtype=torch.int32, device=dev)
-    # Cell centres o - (i + 0.5) * res, which the reference's compiler
-    # contracts into one fused multiply-add inside its compiled step.
-    ox, oy = geom.origin(position)
-    res = torch.tensor(geom.resolution, dtype=torch.float32, device=dev)
-    cx = fma_f32(-(rr.to(torch.float32) + 0.5), res, ox)[:, None].expand(wr, wc)
-    cy = fma_f32(-(cc.to(torch.float32) + 0.5), res, oy)[None, :].expand(wr, wc)
-    ddx = cx - sensor_origin[0]
-    ddy = cy - sensor_origin[1]
-    dist = _hypot(ddx, ddy)
-    cell_az = torch.atan2(ddy, ddx)
-    inv_dr = recip_f32(dr)
-    # Far-edge range: for downward rays the in-cell minimum sits there.
-    r_idx = torch.clamp(to_i32((dist + geom.resolution * 0.5) * inv_dr), 0, R - 1)
-    d_cell = r_idx.to(torch.float32) * dr
-    half_w = torch.atan2(
-        torch.full_like(d_cell, geom.resolution * AZ_HALF_WIDTH),
-        torch.clamp_min(d_cell, 1e-6),
-    )
-    w_bins = torch.clamp(
-        to_i32(torch.ceil(half_w * recip_f32(2 * _PI / A) * 2.0)) + 1, 1, A // 2
-    )
-    lvl_cell = floor_i32(torch.log2(torch.clamp_min(w_bins, 1).to(torch.float32)))
-    w_pow = torch.bitwise_left_shift(torch.ones_like(lvl_cell), lvl_cell)
-    a_center = torch.clamp(
-        floor_i32((cell_az + _PI) * recip_f32(2 * _PI) * A), 0, A - 1
-    )
-    a0 = torch.remainder(a_center - w_bins // 2, A)
-    a1 = torch.remainder(a0 + w_bins - w_pow, A)
-    in_range = (dist + geom.resolution * 0.5) <= (R - 1) * dr
-    return a0, a1, r_idx, in_range
+    lk = polar_lookup(geom, num_azimuth, range_bin_factor, max_range)
+    return k4.lookup_indices(lk, position, sensor_origin, window)
 
 
 def polar_resample(
@@ -268,19 +232,19 @@ def polar_resample(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scattered [R*A] min slopes -> per-cell (min ray height, touched).
 
-    The field is K1 (``impl`` as in ``polar_smeared_field``), the lookup K4:
-    ``exact_window=True`` folds the window residual into the field so ONE
-    read per cell replaces the two-read sparse-table form -- the same
-    minimum set, bitwise-identical heights.
+    The field is K1 (``impl`` as in ``polar_smeared_field``), the lookup K4
+    with its index math: ``exact_window=True`` folds the window residual
+    into the field so ONE read per cell replaces the two-read sparse-table
+    form -- the same minimum set, bitwise-identical heights.
     """
     smeared = polar_smeared_field(
         geom, sensor_origin, scat_flat, num_azimuth, range_bin_factor,
         max_range, exact_window=exact_window, impl=impl,
     )
-    a0, a1, r_idx, in_range = resample_indices(
-        geom, position, sensor_origin, num_azimuth, range_bin_factor, max_range,
+    lk = polar_lookup(geom, num_azimuth, range_bin_factor, max_range)
+    return k4.resample_lookup(
+        smeared, lk, position, sensor_origin, two_reads=not exact_window
     )
-    return k4.resample(smeared, a0, None if exact_window else a1, r_idx, in_range)
 
 
 def ray_min_height_polar(

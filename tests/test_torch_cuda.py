@@ -5,9 +5,13 @@ On a machine with a card and no JAX, run them without the suite's conftest
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-K1 against its plain twin (identical finite sets, heights within 4e-6),
-K4 against its plain twin (bit for bit in both forms, NaN propagated), their
-launch counters, the wrappers' input checks, small sessions (flagship,
+K1 against its plain twin bit for bit (at the reference test's shapes, at
+edge shapes: folds of 1 and 10 rows, A = 1024, R off the segment sizes, a
+tall field that the column pass walks in chunks; and with window tables of
+any shift), K4 against its plain twin (bit for bit in both forms, NaN
+propagated), the main path's K4 with its index math against its twin
+(whole map and window, one and two reads), their launch counters, the
+wrappers' input checks, small sessions (flagship,
 windowed GLOBAL with Kalman and P^2) on the card against the same sessions
 on the CPU, and the post-processing chain and the sampled raycast on the
 card against the CPU.
@@ -56,8 +60,54 @@ def test_k1_matches_plain_twin(cuda, num_az, rbf, maxr, exact):
     ref = k1.polar_field_plain(scat, win, so, dr, nfold, exact)
     got, ref = got.cpu().numpy(), ref.cpu().numpy()
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
-    fin = np.isfinite(ref)
-    np.testing.assert_allclose(got[fin], ref[fin], rtol=0, atol=4e-6)
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+# (R, A, range bin factor): nfold = 1 and 10; A = 1024; R = 517, not a
+# multiple of the 64 row segments or of their odd length; a tall
+# [4096, 1024] field, more rows than one block's shared memory holds.
+K1_EDGES = [(515, 2048, 1.0), (515, 2048, 0.1), (515, 1024, 0.25), (517, 2048, 0.25),
+            (4096, 1024, 0.25)]
+
+
+@pytest.mark.parametrize("R,A,rbf", K1_EDGES)
+def test_k1_edge_shapes_bitwise(cuda, R, A, rbf):
+    geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1)
+    rng = np.random.default_rng(R + A)
+    tbl = rng.uniform(-2.0, 0.5, (R, A)).astype(np.float32)
+    tbl[rng.random((R, A)) < 0.97] = np.inf
+    dr = geom.resolution * rbf
+    lvl, shift = raycast._column_windows(geom, A, R, dr)
+    win = k1.ColumnWindows.from_numpy(lvl, shift, cuda)
+    scat = torch.tensor(tbl, device=cuda)
+    so = torch.tensor([0.07, -0.03, 1.2], device=cuda)
+    nfold = int(np.ceil(1.0 / rbf))
+    got = k1.polar_field_cuda(scat, win, so, dr, nfold, True)
+    ref = k1.polar_field_plain(scat, win, so, dr, nfold, True)
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    assert np.isfinite(ref).mean() > 0.5
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+def test_k1_any_window_table_bitwise(cuda):
+    """Window tables not from _column_windows: shifts up to and beyond
+    2^lvl (one interval, or the reference's passes), windows of A bins and
+    more, and no window."""
+    rng = np.random.default_rng(11)
+    R, A = 203, 1024
+    lvl = rng.integers(0, 5, R).astype(np.int32)
+    shift = rng.integers(0, 40, R).astype(np.int32)
+    lvl[:3], shift[:3] = 0, 0
+    lvl[3:6] = 9, 10, 11
+    win = k1.ColumnWindows.from_numpy(lvl, shift, cuda)
+    scat = torch.tensor(rng.uniform(-2.0, 0.5, (R, A)).astype(np.float32), device=cuda)
+    scat[torch.rand((R, A), device=cuda) < 0.9] = float("inf")
+    so = torch.tensor([0.07, -0.03, 1.2], device=cuda)
+    for exact in (True, False):
+        got = k1.polar_field_cuda(scat, win, so, 0.025, 3, exact)
+        ref = k1.polar_field_plain(scat, win, so, 0.025, 3, exact)
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                      ref.cpu().numpy().view(np.int32))
 
 
 def test_k1_rejects_bad_inputs(cuda):
@@ -150,6 +200,58 @@ def test_k4_rejects_bad_inputs(cuda):
         k4.resample_cuda(field, idx.long(), None, idx, ok)
     with pytest.raises(ValueError, match="in_range"):
         k4.resample_cuda(field, idx, None, idx, ok.cpu())
+
+
+@pytest.mark.parametrize("two_reads", [False, True])
+@pytest.mark.parametrize("windowed", [False, True])
+def test_k4_lookup_matches_plain_twin(cuda, windowed, two_reads):
+    """The main path's K4 (index math in the kernel) equals its twin,
+    resample_indices + resample_plain on the card, bit for bit."""
+    if windowed:
+        geom, polar = fd.GridGeometry.from_length(200.0, 200.0, 0.1), (2048, 0.25, 24.0)
+        pos, so = [0.0, 0.0], [-10.37, 5.21, 1.0]
+    else:
+        geom, polar = fd.GridGeometry.from_length(15.0, 15.0, 0.1), (2048, 0.25, 12.81)
+        pos, so = [0.2, -0.1], [0.31, -0.17, 1.05]
+    lk = raycast.polar_lookup(geom, *polar)
+    rng = np.random.default_rng(5)
+    field = rng.uniform(-2.0, 0.5, (lk.R, lk.A)).astype(np.float32)
+    field[rng.random(field.shape) < 0.5] = np.inf
+    field[rng.random(field.shape) < 0.01] = np.nan
+    field = torch.tensor(field, device=cuda)
+    pos, so = torch.tensor(pos, device=cuda), torch.tensor(so, device=cuda)
+    window = None
+    if windowed:
+        sr, sc, _ = geom.index_of(pos, so[:2])
+        r0 = torch.clamp(torch.clamp(sr, 0, geom.rows) - 242, 0, geom.rows - 484)
+        c0 = torch.clamp(torch.clamp(sc, 0, geom.cols) - 242, 0, geom.cols - 484)
+        window = (r0, c0, 484, 484)
+    before = k4.launches
+    h, t = k4.resample_lookup_cuda(field, lk, pos, so, window, two_reads)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    h_ref, t_ref = k4.resample_lookup_plain(field, lk, pos, so, window, two_reads)
+    np.testing.assert_array_equal(t.cpu().numpy(), t_ref.cpu().numpy())
+    np.testing.assert_array_equal(h.cpu().numpy().view(np.int32),
+                                  h_ref.cpu().numpy().view(np.int32))
+    assert t.float().mean() > 0.3
+
+
+def test_k4_lookup_reads_strided_origins(cuda):
+    """The sensor origin is a column of the sensor pose (stride 4): the
+    kernel reads it through its stride."""
+    geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1)
+    lk = raycast.polar_lookup(geom, 2048, 0.25, 12.81)
+    field = torch.rand((lk.R, lk.A), device=cuda) - 2.0
+    T = torch.eye(4, device=cuda)
+    T[:3, 3] = torch.tensor([0.31, -0.17, 1.05])
+    so = T[:3, 3]
+    assert so.stride(0) == 4
+    pos = torch.tensor([0.2, -0.1], device=cuda)
+    got = k4.resample_lookup_cuda(field, lk, pos, so)
+    ref = k4.resample_lookup_cuda(field, lk, pos, so.contiguous())
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 def windowed_session(device, est, window_update, n_scans=4):

@@ -130,6 +130,6 @@ def test_p2_session_carried_from_jax_into_port():
         np.testing.assert_array_equal(back[k].view(np.int32), v.view(np.int32))
     for k in range(5, 8):
         assert mj.integrate(pc_j.from_numpy(scans[k], frame_id="lidar"), T_bs, poses[k])
-        assert mt.integrate(ft.cloud.from_numpy(scans[k], frame_id="lidar"), T_bs, poses[k])
+        assert mt.integrate(ft.cloud.from_numpy(scans[k], frame_id="lidar", device="cpu"), T_bs, poses[k])
     assert_layers_agree(mj.state.layers, mt.state)
     assert torch.isfinite(mt.state.layers["elevation"]).sum() > 5000

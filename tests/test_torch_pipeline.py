@@ -59,7 +59,7 @@ def run_golden_session_port(estimator="kalman"):
         T_wb = np.eye(4, dtype=np.float32)
         T_wb[0, 3] = 0.1 * k
         cloud = ft.cloud.from_numpy(
-            np.column_stack([x, y, z]).astype(np.float32), frame_id="lidar"
+            np.column_stack([x, y, z]).astype(np.float32), frame_id="lidar", device="cpu"
         )
         assert m.integrate(cloud, T_bs, T_wb)
     return m.state
@@ -119,7 +119,7 @@ def test_flagship_scans_match_jax():
     scans, T_bs, poses = session(3, seed=7)
     for k in range(3):
         assert mj.integrate(pc_j.from_numpy(scans[k], frame_id="lidar"), T_bs, poses[k])
-        assert mt.integrate(ft.cloud.from_numpy(scans[k], frame_id="lidar"), T_bs, poses[k])
+        assert mt.integrate(ft.cloud.from_numpy(scans[k], frame_id="lidar", device="cpu"), T_bs, poses[k])
     np.testing.assert_array_equal(np.asarray(mj.state.position), mt.state.position.numpy())
     assert_layers_agree(mj.state.layers, mt.state)
     assert torch.isfinite(mt.state.layers["elevation"]).sum() > 10000
@@ -142,7 +142,7 @@ def test_session_carried_from_jax_into_port():
     np.testing.assert_array_equal(pos, np.asarray(mj.state.position))
     for k in range(3, 6):
         assert mj.integrate(pc_j.from_numpy(scans[k], frame_id="lidar"), T_bs, poses[k])
-        assert mt.integrate(ft.cloud.from_numpy(scans[k], frame_id="lidar"), T_bs, poses[k])
+        assert mt.integrate(ft.cloud.from_numpy(scans[k], frame_id="lidar", device="cpu"), T_bs, poses[k])
     assert_layers_agree(mj.state.layers, mt.state)
 
 
@@ -175,14 +175,16 @@ def small_cloud(rng, frame_id="lidar", timestamp_ns=0):
     rad = rng.uniform(0.3, 2.8, n)
     xyz = np.column_stack([rad * np.cos(ang), rad * np.sin(ang),
                            rng.normal(-1.0, 0.02, n)]).astype(np.float32)
-    return ft.cloud.from_numpy(xyz, frame_id=frame_id, timestamp_ns=timestamp_ns)
+    return ft.cloud.from_numpy(xyz, frame_id=frame_id, timestamp_ns=timestamp_ns,
+                               device="cpu")
 
 
 def test_facade_probes(rng):
     geom, m = small_mapper()
     eye = np.eye(4, dtype=np.float32)
     # An empty cloud is refused.
-    empty = ft.cloud.from_numpy(np.zeros((0, 3), np.float32), frame_id="lidar")
+    empty = ft.cloud.from_numpy(np.zeros((0, 3), np.float32), frame_id="lidar",
+                                device="cpu")
     assert not m.integrate(empty, eye, eye)
     # No providers and no transforms: refused.
     assert not m.integrate(small_cloud(rng))
@@ -313,17 +315,36 @@ def test_wrong_package_config_and_missing_cuda():
         ft.cloud.from_numpy(np.zeros((4, 3), np.float32), device="cuda")
 
 
+def test_cloud_and_transform_default_to_the_card():
+    """from_numpy and make_transform build on the card unless the caller
+    names the CPU; without a card their defaults raise."""
+    from fastdem_tpu_torch.cloud import transform as tf_t
+
+    xyz = np.zeros((4, 3), np.float32)
+    assert ft.cloud.from_numpy(xyz, device="cpu").device.type == "cpu"
+    assert tf_t.make_transform(np.eye(3), [1.0, 2.0, 3.0], device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert ft.cloud.from_numpy(xyz).device.type == "cuda"
+        assert tf_t.make_transform().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ft.cloud.from_numpy(xyz)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tf_t.make_transform(np.eye(3), [1.0, 2.0, 3.0])
+
+
 def test_auto_bucket_compacts_sparse_clouds(rng):
     geom, m = small_mapper()
     _, ref = small_mapper()
     xyz = small_cloud(rng).xyz.numpy()
     sparse = np.full((16384, 3), np.nan, dtype=np.float32)
     sparse[::8][: xyz.shape[0]] = xyz
-    cloud = ft.cloud.from_numpy(sparse, frame_id="lidar")
+    cloud = ft.cloud.from_numpy(sparse, frame_id="lidar", device="cpu")
     eye = np.eye(4, dtype=np.float32)
     assert m.integrate(cloud, eye, eye)
     assert m.last_aux.world_xyz.shape[0] == 4096  # compacted to the ladder
-    assert ref.integrate(ft.cloud.from_numpy(xyz, frame_id="lidar"), eye, eye)
+    assert ref.integrate(ft.cloud.from_numpy(xyz, frame_id="lidar", device="cpu"), eye,
+                         eye)
     for k, v in m.state.layers.items():
         np.testing.assert_array_equal(v.numpy(), ref.state.layers[k].numpy())
 
@@ -339,7 +360,8 @@ def test_transform_helpers_match_jax(rng):
                    [0.0, np.sin(b), np.cos(b)]], dtype=np.float32)
     t = rng.normal(size=3).astype(np.float32)
     Tj = tf_j.compose(tf_j.make_transform(R, t), tf_j.make_transform(R2))
-    Tt = tf_t.compose(tf_t.make_transform(R, t), tf_t.make_transform(R2))
+    Tt = tf_t.compose(tf_t.make_transform(R, t, device="cpu"),
+                      tf_t.make_transform(R2, device="cpu"))
     np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(tf_t.inverse(Tt).numpy(), np.asarray(tf_j.inverse(Tj)),
                                rtol=1e-6, atol=1e-6)

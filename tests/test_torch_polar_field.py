@@ -106,6 +106,25 @@ def test_kernel_refuses_cpu_tensors(rng):
     assert k1.launches == before
 
 
+def test_kernel_refuses_bad_fold_widths(rng):
+    """The column pass folds 1..NFOLD_MAX rows; anything else is refused
+    before a launch."""
+    gt = GeomT.from_length(15.0, 15.0, 0.1)
+    A, R, dr = ray_t.polar_dims(gt, 1024, 0.5, 9.0)
+    scat = torch.tensor(table(rng, R, A)).reshape(R, A)
+    win = ray_t.column_windows(gt, 1024, 0.5, 9.0, "cpu")
+    so = torch.tensor(SENSOR)
+    for nfold in (1, k1.NFOLD_MAX):
+        k1._check_inputs(scat, win, so, nfold)
+    before = k1.launches
+    for nfold in (0, k1.NFOLD_MAX + 1):
+        with pytest.raises(ValueError, match="nfold"):
+            k1._check_inputs(scat, win, so, nfold)
+    with pytest.raises(ValueError, match="CUDA"):
+        k1.polar_field_cuda(scat, win, so, dr, 2, True)
+    assert k1.launches == before
+
+
 def test_scatter_spec_and_resample_match_jax(rng):
     """Polar keys and slopes match bit for bit. The per-cell lookups use
     atan2 and hypot, which neither library rounds correctly: last-ulp

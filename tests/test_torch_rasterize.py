@@ -95,7 +95,8 @@ def test_rasterize_rows_matches_jax(rng, n, capacity, ties, mode):
     intensity = rng.uniform(0, 100, n).astype(np.float32)
     color = rng.integers(0, 256, (n, 3)).astype(np.uint8)
     cj = pc_j.from_numpy(xyz, capacity=capacity, intensity=intensity, color=color)
-    ct = pc_t.from_numpy(xyz, capacity=capacity, intensity=intensity, color=color)
+    ct = pc_t.from_numpy(xyz, capacity=capacity, intensity=intensity, color=color,
+                         device="cpu")
     np.testing.assert_array_equal(np.asarray(cj.mask), ct.mask.numpy())
     z_var = rng.uniform(1e-4, 1e-2, capacity).astype(np.float32)
     pos = np.array([0.13, -0.27], dtype=np.float32)

@@ -104,7 +104,8 @@ def test_sampled_session_matches_jax():
         T_wb = np.eye(4, dtype=np.float32)
         T_wb[0, 3], T_wb[1, 3] = 0.11 * k, -0.07 * k
         assert mj.integrate(pc_j.from_numpy(xyz, frame_id="lidar"), T_bs, T_wb)
-        assert mt.integrate(ft.cloud.from_numpy(xyz, frame_id="lidar"), T_bs, T_wb)
+        assert mt.integrate(ft.cloud.from_numpy(xyz, frame_id="lidar", device="cpu"), T_bs,
+                            T_wb)
     assert mt.last_aux.oow_points is None  # the window stays off
     lj, lt = mj.state.layers, mt.state.layers
     assert set(lj) == set(lt)

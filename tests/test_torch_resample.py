@@ -15,7 +15,14 @@ standalone forms, against the JAX package.
     ``tests/test_torch_polar_field.py``: atan2 is not correctly rounded in
     either library, so up to 0.2% of cells may look up another bin; every
     other cell has the same touched flag and a height within 4e-6.
-The CPU path never counts a launch, and the kernel refuses CPU tensors.
+(d) The main path's K4, the lookup with its index math: its plain twin
+    equals ``resample_indices`` followed by ``resample_plain`` bit for bit,
+    and is held against JAX's jitted ``resample_indices`` plus the gather of
+    its pipeline (``fastdem_tpu/mapping/pipeline.py`` phase_a) with at most
+    0.2% of cells differing: on the flagship's full map and on a GLOBAL
+    window whose offsets are int32 device scalars, with one read and two.
+The CPU path never counts a launch, and the kernels refuse CPU tensors and
+bad window scalars.
 """
 
 import jax
@@ -215,3 +222,128 @@ def test_apply_raycasting_standalone_forms_match_jax(rng, form):
             np.testing.assert_array_equal(out_t.layers[name].numpy(), np.asarray(ref),
                                           err_msg=name)
         assert (out_t.layers["ghost_removal"] == 1.0).sum() > 20
+
+
+# (d) The main path's K4. Flagship: 15x15 m at 0.1 m, A = 2048, range bin
+# factor 0.25, field [515, 2048], the whole map. GLOBAL: 200x200 m at 0.1 m,
+# field [962, 2048], the 484x484 window around the sensor.
+LOOKUP_CASES = {
+    "flagship": ((15.0, 15.0, 0.1), (2048, 0.25, 12.81), None,
+                 [0.2, -0.1], [0.31, -0.17, 1.05]),
+    "global_window": ((200.0, 200.0, 0.1), (2048, 0.25, 24.0), (484, 484),
+                      [0.0, 0.0], [-10.37, 5.21, 1.0]),
+}
+
+
+def lookup_inputs(rng, case):
+    geom_args, polar, win, pos, so = LOOKUP_CASES[case]
+    gj, gt = GeomJ.from_length(*geom_args), GeomT.from_length(*geom_args)
+    A, R, _ = ray_t.polar_dims(gt, *polar)
+    field = rng.uniform(-2.0, 0.5, (R, A)).astype(np.float32)
+    field[rng.random((R, A)) < 0.5] = np.inf
+    pos, so = np.array(pos, np.float32), np.array(so, np.float32)
+    window = None
+    if win is not None:
+        # The pipeline's window_at: centred on the sensor, clipped to the map.
+        sr, sc, _ = gt.index_of(torch.tensor(pos), torch.tensor(so[:2]))
+        wr, wc = win
+        r0 = torch.clamp(torch.clamp(sr, 0, gt.rows) - wr // 2, 0, gt.rows - wr)
+        c0 = torch.clamp(torch.clamp(sc, 0, gt.cols) - wc // 2, 0, gt.cols - wc)
+        assert r0.dtype == c0.dtype == torch.int32 and r0.dim() == 0
+        window = (r0, c0, wr, wc)
+    return gj, gt, polar, field, pos, so, window
+
+
+@pytest.mark.parametrize("two_reads", [False, True])
+@pytest.mark.parametrize("case", list(LOOKUP_CASES))
+def test_lookup_twin_equals_indices_then_resample(rng, case, two_reads):
+    _, gt, polar, field, pos, so, window = lookup_inputs(rng, case)
+    lk = ray_t.polar_lookup(gt, *polar)
+    args = (torch.tensor(field), lk, torch.tensor(pos), torch.tensor(so))
+    before = k4.launches
+    got = k4.resample_lookup(*args, window=window, two_reads=two_reads)
+    assert k4.launches == before
+    a0, a1, r_idx, in_range = ray_t.resample_indices(
+        gt, torch.tensor(pos), torch.tensor(so), *polar, window=window)
+    ref = k4.resample_plain(torch.tensor(field), a0, a1 if two_reads else None, r_idx,
+                            in_range)
+    shape = gt.shape if window is None else window[2:]
+    for g, r in zip(got, ref):
+        assert tuple(g.shape) == tuple(shape) and g.dtype == r.dtype
+    np.testing.assert_array_equal(got[1].numpy(), ref[1].numpy())
+    np.testing.assert_array_equal(got[0].numpy().view(np.int32), ref[0].numpy().view(np.int32))
+    assert got[1].sum() > 0.3 * got[1].numel()
+
+
+@pytest.mark.parametrize("two_reads", [False, True])
+@pytest.mark.parametrize("case", list(LOOKUP_CASES))
+def test_lookup_twin_matches_jax_indices_and_gather(rng, case, two_reads):
+    gj, gt, polar, field, pos, so, window = lookup_inputs(rng, case)
+    lk = ray_t.polar_lookup(gt, *polar)
+    h_t, t_t = k4.resample_lookup_plain(torch.tensor(field), lk, torch.tensor(pos),
+                                        torch.tensor(so), window=window,
+                                        two_reads=two_reads)
+    win_j = None if window is None else (jnp.int32(int(window[0])), jnp.int32(int(window[1])),
+                                         *window[2:])
+
+    def lookup_j(p, s, r0c0):
+        w = None if win_j is None else (r0c0[0], r0c0[1], *win_j[2:])
+        return ray_j.resample_indices(gj, p, s, *polar, window=w)
+
+    r0c0 = None if win_j is None else jnp.stack(win_j[:2])
+    a0, a1, r_idx, in_range = (np.asarray(x) for x in jax.jit(lookup_j)(pos, so, r0c0))
+    # JAX's pipeline gathers from the [R, A] field at r_idx * A + a0 (and
+    # + a1 with two reads) and takes the min.
+    A = polar[0]
+    flat = field.reshape(-1)
+    h_j = flat[r_idx * A + a0]
+    if two_reads:
+        h_j = np.minimum(h_j, flat[r_idx * A + a1])
+    t_j = np.isfinite(h_j) & in_range
+    h_t, t_t = h_t.numpy(), t_t.numpy()
+    assert t_j.shape == t_t.shape and t_j.sum() > 0.3 * t_j.size
+    assert np.mean(t_j != t_t) <= LOOKUP_SHARE
+    both = t_j & t_t
+    assert np.mean(h_t[both].view(np.int32) != h_j[both].view(np.int32)) <= LOOKUP_SHARE
+    assert np.isnan(h_t[~t_t]).all()
+
+
+def test_lookup_kernel_refuses_cpu_tensors_and_bad_windows(rng):
+    _, gt, polar, field, pos, so, window = lookup_inputs(rng, "global_window")
+    lk = ray_t.polar_lookup(gt, *polar)
+    args = (torch.tensor(field), lk, torch.tensor(pos), torch.tensor(so))
+    before = k4.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.resample_lookup_cuda(*args, window=window)
+    r0, c0, wr, wc = window
+    check = k4._check_lookup_inputs
+    check(*args, window)
+    check(*args, None)
+    for bad in ((r0.long(), c0, wr, wc), (r0, int(c0), wr, wc),
+                (r0, torch.stack([c0, c0]), wr, wc)):
+        with pytest.raises(ValueError, match="window offset"):
+            check(*args, bad)
+    for bad in ((r0, c0, 0, wc), (r0, c0, wr, gt.cols + 1), (r0, c0, float(wr), wc)):
+        with pytest.raises(ValueError, match="window extent"):
+            check(*args, bad)
+    with pytest.raises(ValueError, match="field must be"):
+        check(torch.tensor(field[:-1]), *args[1:], None)
+    with pytest.raises(ValueError, match="contiguous"):
+        check(torch.tensor(field).t().contiguous().t(), *args[1:], None)
+    with pytest.raises(ValueError, match="sensor_origin"):
+        check(*args[:3], torch.tensor(so[:2]), None)
+    with pytest.raises(ValueError, match="position"):
+        check(args[0], lk, torch.tensor(pos).double(), args[3], None)
+    assert k4.launches == before
+
+
+def test_lookup_params_are_the_twins_f32_constants():
+    lk = ray_t.polar_lookup(GeomT.from_length(15.0, 15.0, 0.1), 2048, 0.25, 12.81)
+    p = lk.params(150, 150, True)
+    assert (p.R, p.A, p.wr, p.wc, p.two_reads) == (515, 2048, 150, 150, 1)
+    f32 = np.float32
+    for name, want in (("half_x", f32(7.5)), ("res", f32(0.1)), ("dr", f32(0.025)),
+                       ("a_f", f32(2048)), ("r_max", f32(514 * 0.025)),
+                       ("inv_dr", f32(1) / f32(0.025)), ("pi", f32(np.pi)),
+                       ("inv_2pi", f32(1) / f32(2 * np.pi))):
+        assert f32(getattr(p, name)) == want, name

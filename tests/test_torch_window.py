@@ -197,7 +197,7 @@ class TestExtrinsicMarginGuard:
         mapper = ft.FastDEM(geom40(), config(ft, raycast=False), device="cpu")
         assert mapper._window_margin == 2.0
         with caplog.at_level(logging.WARNING, logger="fastdem_tpu_torch"):
-            assert mapper.integrate(from_numpy(xyz), T_bs, np.eye(4))
+            assert mapper.integrate(from_numpy(xyz, device="cpu"), T_bs, np.eye(4))
         assert mapper._window_margin > 3.0
         assert any("window margin" in r.message for r in caplog.records)
         assert int(mapper.last_aux.oow_points) == 0
@@ -212,7 +212,7 @@ class TestExtrinsicMarginGuard:
                                           device="cpu")
         mapper._oow_check_every = 1
         with caplog.at_level(logging.ERROR, logger="fastdem_tpu_torch"):
-            assert mapper.integrate(from_numpy(xyz), T_bs, np.eye(4))
+            assert mapper.integrate(from_numpy(xyz, device="cpu"), T_bs, np.eye(4))
         assert int(mapper.last_aux.oow_points) > 0
         assert any("OUTSIDE the update window" in r.message for r in caplog.records)
 
