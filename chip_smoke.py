@@ -59,6 +59,29 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  covering > 97% of its cells; then a 5-scan flagship
                  session with raycasting.method = "sampled", card against
                  CPU (no K1 / K4 launch on that path).
+ 13. node     -- the mapping node's driver (runtime.MappingDriver) from the
+                 port's local_mapping preset on the card, fed 32 of the node
+                 tool's synthetic 30,000-point scans through a
+                 TransformBuffer three ways: sync intake, async intake in
+                 bursts of 8, async intake with the post-processing timer
+                 at the preset's 2 Hz. The three maps are bit-identical, K1
+                 and K4 launch once per scan, no scan drops; run_postprocess
+                 on the card against the CPU chain on the same snapshot (the
+                 tolerances of phase 11); save_npz -> load_npz bitwise.
+                 scans/s over 128 scans, sync and async with the timer off
+                 and on (in turns) and with the preset's own timers, the
+                 timers' host ms per tick (viz also with no scan coming
+                 in), every run's map bit-identical; the node tool as a
+                 subprocess (16 scans); the
+                 GLOBAL node preset (200 m at 0.1 m) for 8 scans with its
+                 viz tick's host ms.
+ 14. replay   -- FastDEM.integrate_sequence (batch 16) over 64 flagship
+                 scans, and build_integrate_sequence on the same scans
+                 stacked on the card in calls of 16, against the integrate
+                 loop: bit-identical on every layer, one K1 and one K4
+                 launch per scan, ms/scan of each (CUDA events, three of
+                 each in turns); the replay tool as a subprocess (64
+                 scans, batch 16).
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -71,6 +94,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -79,6 +103,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 import fastdem_tpu_torch as fd  # noqa: E402
+from fastdem_tpu_torch.mapping.pipeline import build_integrate_sequence  # noqa: E402
 from fastdem_tpu_torch.ops import cuda_build  # noqa: E402
 from fastdem_tpu_torch.ops import polar_field as k1  # noqa: E402
 from fastdem_tpu_torch.ops import resample as k4  # noqa: E402
@@ -123,6 +148,15 @@ PP_MARGIN = 8
 PP_REPS = 5
 # Scans under the profiler for the device events per scan (phase 10).
 EVENT_SCANS = 8
+# The node (phase 13) and replay (phase 14).
+NODE_SCANS = 32
+NODE_BURST = 8
+NODE_RATE_SCANS = 128
+GLOBAL_NODE_SCANS = 8
+VIZ_TICKS = 5
+REPLAY_SCANS = 64
+REPLAY_BATCH = 16
+TOOL_TIMEOUT_S = 240
 
 
 def terrain(x, y):
@@ -829,6 +863,321 @@ def phase_sampled(card, dev="cuda"):
     check_parity("sampled flagship", cpu.state, gpu.state)
 
 
+def node_stream(n_scans):
+    """The node tool's synthetic scans as host clouds, a TransformBuffer
+    holding their poses and the tool's calibration (sensor 1 m above the
+    base)."""
+    from fastdem_tpu_torch.runtime import StaticCalibration, TransformBuffer
+    from fastdem_tpu_torch.tools.common import synthetic_scans
+
+    calib = StaticCalibration("base_link")
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[2, 3] = 1.0
+    calib.set_extrinsic("lidar", T_bs)
+    odom = TransformBuffer("base_link", "map")
+    clouds = []
+    for xyz, T_wb, t_ns in synthetic_scans(n_scans):
+        odom.add_pose(t_ns, T_wb)
+        clouds.append(fd.cloud.from_numpy(xyz, frame_id="lidar", timestamp_ns=t_ns,
+                                          device="cpu"))
+    return clouds, calib, odom
+
+
+def node_driver(node_cfg, calib, odom, pp_rate=0.0, viz_rate=0.0, global_rate=0.0, **kw):
+    from fastdem_tpu_torch.runtime import MappingDriver
+
+    return MappingDriver(
+        fd.GridGeometry.from_length(node_cfg.map.width, node_cfg.map.height,
+                                    node_cfg.map.resolution),
+        node_cfg.pipeline, postprocess_cfg=node_cfg.postprocess, calibration=calib,
+        odometry=odom, postprocess_rate=pp_rate, viz_rate=viz_rate,
+        global_rate=global_rate, global_window=(node_cfg.map.width, node_cfg.map.height),
+        device="cuda", **kw)
+
+
+def feed_node(d, clouds):
+    """Every scan through on_scan, then the queue drained; (host seconds
+    from the first scan to the last integrated one, synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in clouds:
+        if not d.on_scan(c):
+            raise AssertionError("the node refused a scan")
+    if d.async_intake and not d.drain(timeout=300.0):
+        raise AssertionError("the node's intake queue did not drain")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if (d.scan_count, d.dropped_scans, d.intake_errors) != (len(clouds), 0, 0):
+        raise AssertionError(
+            f"node: {d.scan_count} scans integrated, {d.dropped_scans} dropped, "
+            f"{d.intake_errors} intake errors, of {len(clouds)}")
+    return secs
+
+
+def wait_ticks(d, topic, n):
+    """Block until the driver's ``topic`` sink has been called n times."""
+    import threading
+
+    done = threading.Event()
+    count = [0]
+
+    def sink(_payload):
+        count[0] += 1
+        if count[0] >= n:
+            done.set()
+
+    d.sinks[topic] = sink
+    return done
+
+
+def tick_summary(d):
+    return ", ".join(f"{name} {len(ms)} ticks, median {float(np.median(ms))!r} host ms"
+                     for name, ms in sorted(d.tick_ms.items()) if ms)
+
+
+def run_tool(args):
+    """A port tool as a subprocess from the checkout; its output lines."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=TOOL_TIMEOUT_S)
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    print(f"{args[0]}: exit {proc.returncode}; " + " | ".join(lines[-3:]))
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[0]} failed:\n" + "\n".join(lines[-40:]))
+    return lines
+
+
+def phase_node(card):
+    """Phase 13; returns the K1 and K4 launches of its three main-path
+    runs."""
+    import tempfile
+
+    from fastdem_tpu_torch.io.npz import load_npz, save_npz
+    from fastdem_tpu_torch.runtime import NodeConfig
+    from fastdem_tpu_torch.runtime.driver import SNAPSHOT_LAYERS
+
+    node_cfg = NodeConfig.from_preset("local_mapping")
+    pp_rate = node_cfg.topics.post_process_rate
+    clouds, calib, odom = node_stream(NODE_SCANS)
+    maps = {}
+    l1 = l4 = 0
+    for way, kw in (("sync", {}),
+                    ("async", dict(async_intake=True, burst_batch=NODE_BURST)),
+                    ("async + pp timer", dict(async_intake=True, burst_batch=NODE_BURST,
+                                              pp_rate=pp_rate))):
+        with node_driver(node_cfg, calib, odom, **kw) as d:
+            torch.cuda.synchronize()
+            k1.launches = k4.launches = 0
+            secs = feed_node(d, clouds)
+            n1, n4 = k1.launches, k4.launches
+            print(f"node {way}: {d.scan_count} scans in {secs!r} s, K1 launches {n1}, K4 "
+                  f"launches {n4}, dropped {d.dropped_scans}; {tick_summary(d)}")
+            if (n1, n4) != (NODE_SCANS, NODE_SCANS):
+                raise AssertionError(f"node {way}: K1/K4 launched {n1}/{n4} times")
+            l1, l4 = l1 + n1, l4 + n4
+            maps[way] = {k: v.clone() for k, v in d.mapper.state.layers.items()}
+            if way == "sync":
+                geom = d.geom
+                check_node_postprocess(d, SNAPSHOT_LAYERS)
+                with tempfile.TemporaryDirectory() as tmp:
+                    path = os.path.join(tmp, "map.npz")
+                    if not save_npz(path, geom, d.mapper.state, frame_id="map"):
+                        raise AssertionError("save_npz failed")
+                    g2, s2, _ = load_npz(path)
+                    size = os.path.getsize(path)
+                same = (g2.rows, g2.cols) == (geom.rows, geom.cols) and all(
+                    torch.equal(s2.layers[k].view(torch.int32), v.view(torch.int32))
+                    for k, v in d.mapper.state.layers.items()
+                ) and torch.equal(s2.position, d.mapper.state.position)
+                print(f"node save_npz -> load_npz: {len(s2.layers)} layers, {size} bytes, "
+                      f"bitwise equal {same}")
+                if not same or set(s2.layers) != set(d.mapper.state.layers):
+                    raise AssertionError("npz round trip is not bitwise")
+    differ = [k for k in maps["sync"] for way in ("async", "async + pp timer")
+              if not torch.equal(maps[way][k].view(torch.int32),
+                                 maps["sync"][k].view(torch.int32))]
+    mapped = int(torch.isfinite(maps["sync"]["elevation"]).sum())
+    print(f"node: sync, async and async + pp timer maps, layers differing bitwise: "
+          f"{differ}; {mapped} mapped cells")
+    if differ or mapped < 15000:
+        raise AssertionError(f"node maps differ across intakes: {differ}")
+    node_rates(card, node_cfg)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_tool(["fastdem_tpu_torch.tools.fastdem_node", "--preset", "local_mapping",
+                  "--synthetic", "16", "--out", tmp])
+        missing = [f for f in ("map_final.npz", "elevation.png", "slope.png")
+                   if not os.path.getsize(os.path.join(tmp, f))]
+        if missing:
+            raise AssertionError(f"the node tool wrote no {missing}")
+    global_node(card)
+    return l1, l4
+
+
+def check_node_postprocess(d, names):
+    """run_postprocess on the card against the CPU chain on the same
+    snapshot, at the tolerances of phase 11."""
+    snap = d.snapshot()
+    got = d.run_postprocess()
+    cpu = apply_postprocess_fn(d.geom, d.pp_cfg)(*(snap.layers[k].cpu() for k in names))
+    compare_chain("node run_postprocess", cpu, {k: torch.from_numpy(v) for k, v in got.items()})
+    if int(np.isfinite(got["slope"]).sum()) < 15000:
+        raise AssertionError("node run_postprocess: too few feature cells")
+
+
+def node_rates(card, node_cfg):
+    """scans/s of the node over NODE_RATE_SCANS scans: sync intake and async
+    bursts with the post-processing timer off and on, in turns; then with
+    the preset's own timers (viz, global, post-processing), the timers'
+    host ms per tick while scans come in and, for viz, after they stop."""
+    clouds, calib, odom = node_stream(NODE_RATE_SCANS)
+    kw = dict(async_intake=True, burst_batch=NODE_BURST, max_queue=NODE_RATE_SCANS)
+    pp_rate = node_cfg.topics.post_process_rate
+    maps = []
+    for label, rate, intake in (("sync, pp timer off", 0.0, {}),
+                                ("async, pp timer off", 0.0, kw),
+                                ("async, pp timer on", pp_rate, kw),
+                                ("async, pp timer on", pp_rate, kw),
+                                ("async, pp timer off", 0.0, kw),
+                                ("sync, pp timer off", 0.0, {})):
+        with node_driver(node_cfg, calib, odom, pp_rate=rate, **intake) as d:
+            secs = feed_node(d, clouds)
+            print(f"node {label} ({rate!r} Hz): {NODE_RATE_SCANS / secs!r} scans/s "
+                  f"({secs * 1e3 / NODE_RATE_SCANS!r} ms/scan, host clock); "
+                  f"{tick_summary(d)} on {card}")
+            maps.append(d.mapper.state)
+    t = node_cfg.topics
+    with node_driver(node_cfg, calib, odom, pp_rate=t.post_process_rate,
+                     viz_rate=t.publish_rate, global_rate=t.global_publish_rate, **kw) as d:
+        ticked = wait_ticks(d, "map", VIZ_TICKS)
+        secs = feed_node(d, clouds)
+        if not ticked.wait(timeout=30.0):
+            raise AssertionError("the node's viz timer did not tick")
+        print(f"node, the preset's timers (viz {t.publish_rate!r} Hz, global "
+              f"{t.global_publish_rate!r} Hz, pp {t.post_process_rate!r} Hz): "
+              f"{NODE_RATE_SCANS / secs!r} scans/s; while scans came in: "
+              f"{tick_summary(d)} on {card}")
+        busy = len(d.tick_ms["viz"])
+        if not wait_ticks(d, "map", VIZ_TICKS).wait(timeout=30.0):
+            raise AssertionError("the node's viz timer stopped")
+        idle = list(d.tick_ms["viz"])[busy:]
+        print(f"node viz tick with no scan coming in: {len(idle)} ticks, median "
+              f"{float(np.median(idle))!r} host ms on {card}")
+        maps.append(d.mapper.state)
+    # The timers read the map while bursts integrate; no run's map may differ.
+    differ = sorted({k for m in maps[1:] for k, v in m.layers.items()
+                     if not torch.equal(v.view(torch.int32),
+                                        maps[0].layers[k].view(torch.int32))})
+    print(f"node, {NODE_RATE_SCANS} scans: the {len(maps)} runs above, layers differing "
+          f"bitwise from the first: {differ}")
+    if differ:
+        raise AssertionError(f"node maps differ with the timers on: {differ}")
+
+
+def global_node(card):
+    """The GLOBAL node preset (200 m at 0.1 m, raycast off) for a few scans,
+    its timers on; the viz tick's host ms on the 2000x2000 map."""
+    from fastdem_tpu_torch.runtime import NodeConfig
+
+    node_cfg = NodeConfig.from_preset("global_mapping_node")
+    t = node_cfg.topics
+    clouds, calib, odom = node_stream(GLOBAL_NODE_SCANS)
+    with node_driver(node_cfg, calib, odom, pp_rate=t.post_process_rate,
+                     viz_rate=t.publish_rate, global_rate=t.global_publish_rate,
+                     async_intake=True, burst_batch=NODE_BURST) as d:
+        ticked = wait_ticks(d, "map", VIZ_TICKS)
+        secs = feed_node(d, clouds)
+        if not ticked.wait(timeout=60.0):
+            raise AssertionError("the GLOBAL node's viz timer did not tick")
+        shape = tuple(d.mapper.state.layers["elevation"].shape)
+        mapped = int(torch.isfinite(d.mapper.state.layers["elevation"]).sum())
+        published = sum(1 for k in d.mapper.state.layers if not k.startswith("_"))
+        print(f"global node: {d.scan_count} scans in {secs!r} s, map {shape}, {mapped} "
+              f"mapped cells, {published} published layers of "
+              f"{shape[0] * shape[1] * 4 / 2**20!r} MiB; {tick_summary(d)} on {card}")
+    if mapped < 10000:
+        raise AssertionError("the GLOBAL node mapped too few cells")
+
+
+def phase_replay(card):
+    """Phase 14; returns the K1 and K4 launches of the sequence run."""
+    geom = flagship_geom()
+    scans, T_bs, poses = make_session(REPLAY_SCANS, seed=29)
+    clouds = [fd.cloud.from_numpy(scans[k], frame_id="lidar", device="cuda")
+              for k in range(REPLAY_SCANS)]
+    poses = np.stack(poses)
+
+    def loop():
+        m = fd.FastDEM(geom, flagship_config(), device="cuda")
+        for k in range(REPLAY_SCANS):
+            m.integrate(clouds[k], T_bs, poses[k])
+        return m
+
+    def sequence():
+        m = fd.FastDEM(geom, flagship_config(), device="cuda")
+        if m.integrate_sequence(clouds, T_bs, poses, batch=REPLAY_BATCH) != REPLAY_SCANS:
+            raise AssertionError("integrate_sequence dropped scans")
+        return m
+
+    xyz = torch.as_tensor(np.asarray(scans, np.float32), device="cuda")
+    mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device="cuda")
+    tbs_d = torch.as_tensor(T_bs, device="cuda")
+    twb_d = torch.as_tensor(poses, device="cuda")
+
+    def stacked():
+        seq = build_integrate_sequence(geom, flagship_config(), device="cuda")
+        state = fd.create_map_state(geom, flagship_config(), device="cuda")
+        for lo in range(0, REPLAY_SCANS, REPLAY_BATCH):
+            hi = lo + REPLAY_BATCH
+            state = seq(state, xyz[lo:hi], mask[lo:hi], tbs_d, twb_d[lo:hi])
+        return SimpleNamespace(state=state)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        m = fn()
+        end.record()
+        end.synchronize()
+        return m, start.elapsed_time(end) / REPLAY_SCANS, (time.perf_counter() - t0) * 1e3 / REPLAY_SCANS
+
+    loop()  # warm-up
+    results = {}
+    launches = None
+    for label, fn in (("loop", loop), ("sequence", sequence), ("stacked", stacked),
+                      ("stacked", stacked), ("sequence", sequence), ("loop", loop),
+                      ("loop", loop), ("sequence", sequence), ("stacked", stacked)):
+        k1.launches = k4.launches = 0
+        m, ms, wall = timed(fn)
+        torch.cuda.synchronize()
+        if label == "sequence" and launches is None:
+            launches = (k1.launches, k4.launches)
+        if (k1.launches, k4.launches) != (REPLAY_SCANS, REPLAY_SCANS):
+            raise AssertionError(f"replay {label}: K1/K4 launched {k1.launches}/"
+                                 f"{k4.launches} times, want {REPLAY_SCANS} each")
+        results.setdefault(label, (m, []))[1].append((ms, wall))
+        print(f"replay {label}: {ms!r} ms/scan (CUDA events), {wall!r} ms/scan (host clock), "
+              f"{REPLAY_SCANS} scans, K1/K4 launches {k1.launches}/{k4.launches} on {card}")
+    loop_state = results["loop"][0].state
+    differ = [(label, k) for label in ("sequence", "stacked")
+              for k, v in loop_state.layers.items()
+              if not torch.equal(results[label][0].state.layers[k].view(torch.int32),
+                                 v.view(torch.int32))]
+    med = {k: float(np.median([ms for ms, _ in v[1]])) for k, v in results.items()}
+    print(f"replay: FastDEM.integrate_sequence (batch {REPLAY_BATCH}) and "
+          f"build_integrate_sequence ({REPLAY_BATCH} stacked scans a call) vs the integrate "
+          f"loop, layers differing bitwise: {differ}; median ms/scan (CUDA events) sequence "
+          f"{med['sequence']!r}, stacked {med['stacked']!r}, loop {med['loop']!r} on {card}")
+    if differ:
+        raise AssertionError(f"batched replay differs from the loop on {differ}")
+    check_map("replay", geom, results["sequence"][0], "kalman", 17000)
+    run_tool(["fastdem_tpu_torch.tools.fastdem_replay", "--preset", "local_mapping",
+              "--synthetic", str(REPLAY_SCANS), "--batch", str(REPLAY_BATCH)])
+    return launches
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -924,6 +1273,12 @@ def main() -> int:
 
     # ---- 12. the sampled raycast ----
     phase_sampled(card)
+
+    # ---- 13. the mapping node ----
+    add_launches(*phase_node(card))
+
+    # ---- 14. batched replay ----
+    add_launches(*phase_replay(card))
 
     k1_main = k1_ms["flagship"]
     k4_main = k4_ms["global"]

@@ -1,5 +1,5 @@
 """Fixed-capacity SoA point cloud (port of ``fastdem_tpu/cloud/pointcloud.py``,
-the part the facade uses).
+the part the facade, the IO and the runtime use).
 
 A cloud holds f32[N, 3] points, a bool[N] validity mask and optional named
 channels, all on one device. Padding rows have mask False and xyz set to a
@@ -9,12 +9,13 @@ far-away 1e9 sentinel, so an unmasked consumer maps them out of any grid.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fastdem_tpu_torch.device import resolve_device
+from fastdem_tpu_torch.interop import to_host
 
 CHANNEL_DTYPES = {
     "intensity": np.float32,
@@ -51,6 +52,12 @@ class PointCloud:
     timestamp_ns: int = 0
     nominal_count: int = -1
     valid_count: int = -1
+    # A cloud made by ``stage``: the pinned host tensors its copies read
+    # from, held for as long as the cloud lives, so the asynchronous copies
+    # never read freed memory.
+    pinned_source: Optional[Tuple] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
     @property
     def capacity(self) -> int:
@@ -68,6 +75,12 @@ class PointCloud:
         if self.nominal_count >= 0:
             return self.nominal_count == 0
         return self.capacity == 0 or self.count() == 0
+
+    def has(self, channel: str) -> bool:
+        return channel in self.channels
+
+    def with_frame(self, frame_id: str) -> "PointCloud":
+        return dataclasses.replace(self, frame_id=frame_id)
 
     def to(self, device) -> "PointCloud":
         """The same cloud with every tensor on ``device``."""
@@ -125,6 +138,85 @@ def from_numpy(
     )
 
 
+def stage(cloud: PointCloud, device="cuda") -> PointCloud:
+    """Start the copies of a host cloud to ``device`` and return the cloud
+    backed by the (possibly still in-flight) device tensors.
+
+    A CPU cloud bound for a CUDA device is copied through pinned host
+    memory with ``non_blocking=True`` on the current stream, so the copy
+    overlaps host work and is ordered before every later kernel on that
+    stream; the returned cloud holds the pinned source (``pinned_source``)
+    for as long as it lives. A cloud already on ``device`` is returned as
+    it is; any other move is a plain ``to``."""
+    dev = resolve_device(device)
+    if cloud.device == dev:
+        return cloud
+    if cloud.device.type != "cpu" or dev.type != "cuda":
+        return cloud.to(dev)
+    xyz = cloud.xyz.pin_memory()
+    mask = cloud.mask.pin_memory()
+    ch = {k: v.pin_memory() for k, v in cloud.channels.items()}
+    return dataclasses.replace(
+        cloud,
+        xyz=xyz.to(dev, non_blocking=True),
+        mask=mask.to(dev, non_blocking=True),
+        channels={k: v.to(dev, non_blocking=True) for k, v in ch.items()},
+        pinned_source=(xyz, mask, ch),
+    )
+
+
+def host_arrays(cloud: PointCloud):
+    """(xyz, mask, channels) of the cloud as numpy arrays, in one read
+    from its device (``interop.to_host``)."""
+    host = to_host({"xyz": cloud.xyz, "mask": cloud.mask,
+                    **{("ch", k): v for k, v in cloud.channels.items()}})
+    ch = {k: host[("ch", k)] for k in cloud.channels}
+    return host["xyz"], host["mask"], ch
+
+
+def compact(cloud: PointCloud) -> PointCloud:
+    """Drop masked-out points (order preserved): an exact-size cloud on the
+    same device. A CUDA cloud pays a device-to-host read."""
+    xyz, keep, ch = host_arrays(cloud)
+    return from_numpy(
+        xyz[keep],
+        frame_id=cloud.frame_id,
+        timestamp_ns=cloud.timestamp_ns,
+        device=cloud.device,
+        **{k: v[keep] for k, v in ch.items()},
+    )
+
+
+def pad_to(cloud: PointCloud, capacity: int) -> PointCloud:
+    """Grow the capacity to ``capacity`` with padding rows (on the cloud's
+    device)."""
+    if capacity == cloud.capacity:
+        return cloud
+    if capacity < cloud.capacity:
+        raise ValueError("pad_to cannot shrink; use compact() first")
+    extra = capacity - cloud.capacity
+    dev = cloud.device
+    xyz = torch.cat(
+        [cloud.xyz, torch.full((extra, 3), 1e9, dtype=torch.float32, device=dev)]
+    )
+    mask = torch.cat([cloud.mask, torch.zeros(extra, dtype=torch.bool, device=dev)])
+    ch = {
+        k: torch.cat([v, torch.zeros((extra,) + tuple(v.shape[1:]), dtype=v.dtype, device=dev)])
+        for k, v in cloud.channels.items()
+    }
+    return dataclasses.replace(
+        cloud, xyz=xyz, mask=mask, channels=ch, pinned_source=None
+    )
+
+
+def bucket_capacity(n: int, granularity: int = 4096) -> int:
+    """Round up to a multiple of ``granularity``: one batched shape for
+    scans of nearby sizes."""
+    if n <= 0:
+        return granularity
+    return ((n + granularity - 1) // granularity) * granularity
+
+
 def ladder_capacity(n: int, base: int = 4096) -> int:
     """Round up to the geometric capacity ladder base * 2^k."""
     if n <= 0:
@@ -139,9 +231,9 @@ def compact_to_bucket(cloud: PointCloud, base: int = 4096) -> PointCloud:
     """Drop masked-out points (order preserved) and pad to the capacity
     ladder. The result lies on the cloud's device; a CUDA cloud pays one
     device-to-host copy here."""
-    keep = cloud.mask.cpu().numpy()
-    xyz = cloud.xyz.cpu().numpy()[keep]
-    ch = {k: v.cpu().numpy()[keep] for k, v in cloud.channels.items()}
+    xyz, keep, ch = host_arrays(cloud)
+    xyz = xyz[keep]
+    ch = {k: v[keep] for k, v in ch.items()}
     out = from_numpy(
         xyz,
         frame_id=cloud.frame_id,

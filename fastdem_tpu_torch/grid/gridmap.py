@@ -8,7 +8,7 @@ new state and leaves its input unchanged, like the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Mapping, Sequence
+from typing import Dict, Iterable, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +57,12 @@ class layers:
     p2_n = ("_p2_n0", "_p2_n1", "_p2_n2", "_p2_n3", "_p2_n4")
 
 
+def is_internal(name: str) -> bool:
+    """Internal layers have a '_' prefix and are left out of visualization
+    and of the published messages."""
+    return name.startswith("_")
+
+
 @dataclasses.dataclass
 class GridMapState:
     """Per-frame map state.
@@ -91,7 +97,7 @@ def create(
     layer_fills: Mapping[str, float],
     position: Sequence[float] = (0.0, 0.0),
     *,
-    device,
+    device="cuda",
 ) -> GridMapState:
     """Allocate a map on ``device`` with each layer filled with a constant."""
     dev = resolve_device(device)
@@ -130,6 +136,11 @@ def clear_at_mask(state: GridMapState, mask: torch.Tensor) -> GridMapState:
         },
         position=state.position,
     )
+
+
+def is_finite_mask(state: GridMapState, name: str) -> torch.Tensor:
+    """1.0 where the layer is finite, 0.0 where it is NaN (f32[H, W])."""
+    return torch.isfinite(state.layers[name]).to(torch.float32)
 
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
@@ -180,3 +191,26 @@ def snapshot(state: GridMapState, names: Iterable[str]) -> GridMapState:
         layers={n: state.layers[n] for n in names if n in state.layers},
         position=state.position,
     )
+
+
+def submap_slices(
+    geom: GridGeometry,
+    position,
+    center_xy: Sequence[float],
+    length_xy: Sequence[float],
+) -> Tuple[slice, slice]:
+    """Host-side: row / col slices of the submap of extent ``length_xy``
+    meters centred at ``center_xy``, clipped to the map. ``position`` is
+    the map centre as host numbers (a numpy array or a sequence)."""
+    pos = np.asarray(position, dtype=np.float64)
+    ox = pos[0] + 0.5 * geom.rows * geom.resolution
+    oy = pos[1] + 0.5 * geom.cols * geom.resolution
+    r0 = int(np.floor((ox - (center_xy[0] + length_xy[0] / 2)) / geom.resolution))
+    c0 = int(np.floor((oy - (center_xy[1] + length_xy[1] / 2)) / geom.resolution))
+    nr = int(np.ceil(length_xy[0] / geom.resolution))
+    nc = int(np.ceil(length_xy[1] / geom.resolution))
+    r0 = max(0, r0)
+    c0 = max(0, c0)
+    r1 = min(geom.rows, r0 + nr)
+    c1 = min(geom.cols, c0 + nc)
+    return slice(r0, r1), slice(c0, c1)

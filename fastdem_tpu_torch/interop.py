@@ -10,7 +10,7 @@ thus start in one package and continue in the other.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +20,7 @@ from fastdem_tpu_torch.grid.gridmap import GridMapState
 
 
 def state_from_numpy(
-    layers: Mapping[str, np.ndarray], position, device
+    layers: Mapping[str, np.ndarray], position, device="cuda"
 ) -> GridMapState:
     """Numpy layers {name: f32[H, W]} and an f32[2] position -> GridMapState
     on ``device`` (the arrays are copied)."""
@@ -36,7 +36,43 @@ def state_from_numpy(
     return GridMapState(layers=lyr, position=torch.tensor(pos, device=dev))
 
 
+def to_host(arrays: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """Several tensors (or numpy arrays) as numpy arrays, in one read: the
+    copies from a CUDA device are queued into pinned host buffers without
+    waiting, and the stream is synchronised once for all of them. Host
+    arrays pass through."""
+    out = {}
+    streams = set()
+    for name, v in arrays.items():
+        if not isinstance(v, torch.Tensor):
+            out[name] = np.asarray(v)
+            continue
+        v = v.detach()
+        if v.device.type == "cuda":
+            buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            buf.copy_(v, non_blocking=True)
+            streams.add(torch.cuda.current_stream(v.device))
+            v = buf
+        out[name] = v
+    for stream in streams:
+        stream.synchronize()
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
+
+
+def host_state(
+    state, names: Optional[Iterable[str]] = None
+) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+    """The layers ``names`` (all by default, in the state's order) and the
+    position of a map state as host numpy arrays, read in one go (see
+    ``to_host``). Every host-side reader of a map (IO, bridge, wire, the
+    driver's publishers) goes through here."""
+    keys = list(state.layers) if names is None else [n for n in names if n in state.layers]
+    arrays = {("layer", k): state.layers[k] for k in keys}
+    arrays[("position",)] = state.position
+    host = to_host(arrays)
+    return {k: host[("layer", k)] for k in keys}, host[("position",)]
+
+
 def state_to_numpy(state: GridMapState) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
     """GridMapState -> ({name: f32[H, W]}, f32[2] position) on the host."""
-    layers = {k: v.detach().cpu().numpy() for k, v in state.layers.items()}
-    return layers, state.position.detach().cpu().numpy()
+    return host_state(state)

@@ -14,6 +14,12 @@ polar ray field with K1 and looks it up per cell with K4; phase B moves
 the LOCAL map, runs the estimator update, min/max, obstacle and the
 raycast visibility update.
 
+``build_integrate_sequence`` is batched replay: K stacked scans through
+the same step in one call, with no host read between them, so its map
+equals the per-scan loop's bit for bit. ``FastDEM.integrate_sequence``
+takes a list of clouds and runs ``FastDEM.integrate`` on each, so every
+scan keeps its own capacity.
+
 On maps larger than the scan's reach, the rasterizer's tables and the
 whole map update run on a sensor-centred window of the map and are
 written back (``window_update``); the window's top-left cell stays on the
@@ -47,6 +53,7 @@ from fastdem_tpu_torch.mapping import rasterize as raster
 from fastdem_tpu_torch.ops import resample as k4
 from fastdem_tpu_torch.postprocess import raycasting as raycast
 from fastdem_tpu_torch.sensors.models import create_sensor_model
+from fastdem_tpu_torch.utils.colors import pack_rgb
 
 log = logging.getLogger("fastdem_tpu_torch")
 
@@ -109,7 +116,7 @@ def create_map_state(
     has_intensity: bool = False,
     has_color: bool = False,
     *,
-    device,
+    device="cuda",
 ) -> GridMapState:
     return gridmap.create(
         geom,
@@ -248,7 +255,7 @@ def build_integrate(
     window_margin: float = 2.0,
     spmd_blocks: Optional[tuple] = None,
     *,
-    device,
+    device="cuda",
 ):
     """Build the per-scan integrate step for tensors on ``device``.
 
@@ -561,11 +568,63 @@ def _build_phases(
     return phase_a, phase_b, moved_position
 
 
-def pack_rgb(rgb: torch.Tensor) -> torch.Tensor:
-    """u8[..., 3] -> f32[...] bit-packed color value (r << 16 | g << 8 | b)."""
-    rgb = rgb.to(torch.int32)
-    bits = (rgb[..., 0] << 16) | (rgb[..., 1] << 8) | rgb[..., 2]
-    return bits.contiguous().view(torch.float32)
+def build_integrate_sequence(
+    geom: GridGeometry,
+    cfg: Config,
+    has_intensity: bool = False,
+    has_color: bool = False,
+    microbatch: int = 1,
+    *,
+    device="cuda",
+    **step_kwargs,
+):
+    """Batched replay: K scans integrated by one call.
+
+    Returned signature:
+      integrate_sequence(state, xyz, mask, T_bs, T_wb,
+                         intensity=None, color_packed=None) -> state
+    with ``xyz`` f32[K, N, 3], ``mask`` bool[K, N], ``T_wb`` f32[K, 4, 4],
+    ``T_bs`` f32[4, 4] (one extrinsic) or f32[K, 4, 4], optional channels
+    [K, N], all on the step's device. Frame k's aux is not kept.
+
+    The body is the per-scan step of ``build_integrate`` (same arguments),
+    run frame after frame with no host read in between, so the map equals
+    the one-scan-at-a-time loop's bit for bit on every layer. Padding
+    frames replicate the previous pose with an all-False mask: an empty
+    scan touches no cell and a repeated pose makes the LOCAL move a no-op.
+
+    The reference's ``microbatch > 1`` (the irregular ops of several scans
+    flattened into one program) answers a TPU dispatch cost and is not
+    ported: it raises.
+    """
+    if microbatch < 1:
+        raise ValueError("microbatch must be >= 1")
+    if microbatch > 1:
+        raise _not_ported(
+            "build_integrate_sequence(microbatch > 1)",
+            "section 1, the do-not-port list",
+        )
+    step = build_integrate(
+        geom, cfg, has_intensity, has_color, device=device, **step_kwargs
+    )
+
+    def integrate_sequence(
+        state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None
+    ):
+        static_tbs = T_bs.dim() == 2
+        for k in range(xyz.shape[0]):
+            state, _ = step(
+                state,
+                xyz[k],
+                mask[k],
+                T_bs if static_tbs else T_bs[k],
+                T_wb[k],
+                None if intensity is None else intensity[k],
+                None if color_packed is None else color_packed[k],
+            )
+        return state
+
+    return integrate_sequence
 
 
 class FastDEM:
@@ -584,7 +643,7 @@ class FastDEM:
         has_color: bool = False,
         auto_bucket: bool = True,
         *,
-        device,
+        device="cuda",
     ):
         self.device = resolve_device(device)
         self.geom = geom
@@ -730,24 +789,8 @@ class FastDEM:
         if self.has_color and "color" in cloud.channels:
             color_packed = pack_rgb(cloud.channels["color"])
 
-        # The window and polar-field bounds assume the base->sensor xy
-        # offset stays under the margin: widen it (one rebuild) before
-        # integrating rather than drop points past the window.
-        T_bs_host = np.asarray(
-            T_base_sensor.cpu() if isinstance(T_base_sensor, torch.Tensor)
-            else T_base_sensor,
-            dtype=np.float32,
-        )
-        off = float(np.hypot(T_bs_host[0, 3], T_bs_host[1, 3]))
-        if off + 0.5 > self._window_margin:
-            log.warning(
-                "[FastDEM] base->sensor xy offset %.2f m exceeds the window "
-                "margin %.2f m; widening to %.2f m (rebuild).",
-                off, self._window_margin, off + 1.0,
-            )
-            self._window_margin = off + 1.0
-            self._rebuild()
-
+        T_bs_host = _host_f32(T_base_sensor)
+        self._guard_margin(T_bs_host)
         T_bs = torch.as_tensor(T_bs_host, device=self.device)
         T_wb = torch.as_tensor(
             T_world_base, dtype=torch.float32, device=self.device
@@ -775,7 +818,59 @@ class FastDEM:
             self.on_rasterized(self.rasterized_cloud(aux))
         return True
 
+    def _guard_margin(self, T_bs: np.ndarray) -> None:
+        """The window and polar-field bounds assume the base->sensor xy
+        offset stays under the margin: widen it (one rebuild) before
+        integrating rather than drop points past the window."""
+        off = float(np.hypot(T_bs[0, 3], T_bs[1, 3]))
+        if off + 0.5 > self._window_margin:
+            log.warning(
+                "[FastDEM] base->sensor xy offset %.2f m exceeds the window "
+                "margin %.2f m; widening to %.2f m (rebuild).",
+                off, self._window_margin, off + 1.0,
+            )
+            self._window_margin = off + 1.0
+            self._rebuild()
+
+    def integrate_sequence(
+        self, clouds, T_base_sensor=None, T_world_base=None, batch: int = 16
+    ) -> int:
+        """Integrate a list of scans in order: ``integrate`` on each, so the
+        map afterwards is the ``integrate`` loop's, bit for bit, whatever
+        the scans' sizes, and ``last_aux`` and the observation callbacks
+        follow every scan.
+
+        Transforms follow ``integrate``'s rule: explicit mode needs BOTH
+        ``T_base_sensor`` (one 4x4 or one per cloud) and ``T_world_base``
+        (one per cloud); otherwise the providers are queried per cloud and
+        a failed lookup drops that scan. ``batch`` is the reference's count
+        of frames per compiled call; the port's step has no compiled shape,
+        so the value is only checked. Returns the number of scans
+        integrated.
+        """
+        if batch < 1:
+            raise ValueError("batch must be >= 1")
+        n = len(clouds)
+        tbs = twb = [None] * n
+        if T_base_sensor is not None and T_world_base is not None:
+            twb = _host_f32(T_world_base).reshape(-1, 4, 4)
+            if twb.shape[0] != n:
+                raise ValueError("T_world_base must provide one pose per cloud")
+            tbs = _host_f32(T_base_sensor)
+            tbs = [tbs] * n if tbs.shape == (4, 4) else tbs.reshape(-1, 4, 4)
+            if len(tbs) != n:
+                raise ValueError("T_base_sensor must be one 4x4 or one per cloud")
+        return sum(self.integrate(c, b, w) for c, b, w in zip(clouds, tbs, twb))
+
     def rasterized_cloud(self, aux: IntegrateAux):
         """One point per touched cell at (cell center, min_z)."""
         x, y = self.geom.cell_centers(self.state.position)
         return x, y, aux.obs.min_z, aux.obs.touched
+
+
+def _host_f32(T) -> np.ndarray:
+    """A transform (numpy, a sequence or a tensor on any device) as host
+    f32."""
+    if isinstance(T, torch.Tensor):
+        T = T.detach().cpu()
+    return np.asarray(T, dtype=np.float32)

@@ -14,7 +14,9 @@ propagated), the main path's K4 with its index math against its twin
 wrappers' input checks, small sessions (flagship,
 windowed GLOBAL with Kalman and P^2) on the card against the same sessions
 on the CPU, and the post-processing chain and the sampled raycast on the
-card against the CPU.
+card against the CPU; batched replay against the integrate loop bit for
+bit, the node's driver with async intake against its sync intake, and
+``stage()``'s pinned copy.
 """
 
 import numpy as np
@@ -350,3 +352,106 @@ def test_sampled_raycast_on_card(cuda):
     np.testing.assert_array_equal(t.cpu().numpy(), t_ref.numpy())
     np.testing.assert_array_equal(h.cpu().numpy(), h_ref.numpy())
     assert t_ref.sum() > 10000
+
+
+def replay_scans(K, seed=7, n=30000):
+    rng = np.random.default_rng(seed)
+    clouds, poses = [], []
+    for k in range(K):
+        ang = rng.uniform(0, 2 * np.pi, n)
+        rad = rng.uniform(0.5, 7.2, n)
+        xyz = np.column_stack([rad * np.cos(ang), rad * np.sin(ang),
+                               rng.normal(-1.0, 0.02, n)]).astype(np.float32)
+        clouds.append(xyz)
+        T_wb = np.eye(4, dtype=np.float32)
+        T_wb[0, 3] = 0.21 * k
+        poses.append(T_wb)
+    return clouds, np.stack(poses)
+
+
+def flagship_on(device):
+    cfg = fd.Config()
+    cfg.raycasting.enabled = True
+    return fd.FastDEM(fd.GridGeometry.from_length(15.0, 15.0, 0.1), cfg, device=device)
+
+
+def test_integrate_sequence_equals_loop_on_card(cuda):
+    """Seven flagship scans in batches of 3 equal seven integrate calls, bit
+    for bit on every layer, with one K1 and one K4 launch per scan."""
+    xyz, poses = replay_scans(7)
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[2, 3] = 1.0
+    loop = flagship_on(cuda)
+    for k in range(7):
+        assert loop.integrate(fd.cloud.from_numpy(xyz[k], device=cuda), T_bs, poses[k])
+    seq = flagship_on(cuda)
+    torch.cuda.synchronize()
+    before, before4 = k1.launches, k4.launches
+    clouds = [fd.cloud.from_numpy(x, device=cuda) for x in xyz]
+    assert seq.integrate_sequence(clouds, T_bs, poses, batch=3) == 7
+    torch.cuda.synchronize()
+    assert (k1.launches - before, k4.launches - before4) == (7, 7)
+    for name, ref in loop.state.layers.items():
+        np.testing.assert_array_equal(seq.state.layers[name].cpu().numpy().view(np.int32),
+                                      ref.cpu().numpy().view(np.int32), err_msg=name)
+
+
+def test_async_driver_on_card(cuda):
+    """The node's driver with async intake on the card: the same map as the
+    sync intake, bit for bit, nothing dropped, the snapshot post-processed on
+    the card."""
+    from fastdem_tpu_torch.runtime import MappingDriver, StaticCalibration, TransformBuffer
+
+    xyz, poses = replay_scans(6, seed=8)
+    calib = StaticCalibration("base")
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[2, 3] = 1.0
+    calib.set_extrinsic("lidar", T_bs)
+    odom = TransformBuffer("base", "map")
+    for k in range(6):
+        odom.add_pose((k + 1) * 10**9, poses[k])
+    cfg = fd.Config()
+    cfg.raycasting.enabled = True
+    states = []
+    for kw in ({}, {"async_intake": True, "burst_batch": 4}):
+        with MappingDriver(fd.GridGeometry.from_length(15.0, 15.0, 0.1), cfg,
+                           calibration=calib, odometry=odom, postprocess_rate=0.0,
+                           viz_rate=0.0, device=cuda, **kw) as d:
+            for k in range(6):
+                assert d.on_scan(fd.cloud.from_numpy(xyz[k], frame_id="lidar",
+                                                     timestamp_ns=(k + 1) * 10**9,
+                                                     device="cpu"))
+            if kw:
+                assert d.drain(timeout=120.0)
+            assert (d.scan_count, d.dropped_scans, d.intake_errors) == (6, 0, 0)
+            assert d.mapper.state.layers["elevation"].device.type == "cuda"
+            out = d.run_postprocess()
+            assert np.isfinite(out["elevation"]).sum() > 15000
+            states.append({k: v.cpu().numpy() for k, v in d.mapper.state.layers.items()})
+    for name, ref in states[0].items():
+        np.testing.assert_array_equal(states[1][name].view(np.int32), ref.view(np.int32),
+                                      err_msg=name)
+
+
+def test_stage_keeps_its_pinned_source(cuda):
+    """stage() copies a CPU cloud to the card through pinned memory without
+    waiting; the staged cloud holds the pinned source and equals the cloud."""
+    import gc
+
+    from fastdem_tpu_torch.cloud import pointcloud as pc
+
+    rng = np.random.default_rng(9)
+    xyz = rng.normal(size=(50000, 3)).astype(np.float32)
+    inten = rng.uniform(size=50000).astype(np.float32)
+    host = pc.from_numpy(xyz, intensity=inten, frame_id="lidar", device="cpu")
+    staged = pc.stage(host, cuda)
+    del host
+    gc.collect()
+    assert staged.device.type == "cuda"
+    src_xyz, src_mask, src_ch = staged.pinned_source
+    assert src_xyz.is_pinned() and src_mask.is_pinned() and src_ch["intensity"].is_pinned()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(staged.xyz.cpu().numpy(), xyz)
+    np.testing.assert_array_equal(staged.channels["intensity"].cpu().numpy(), inten)
+    assert bool(staged.mask.all()) and staged.valid_count == 50000
+    assert pc.stage(staged, cuda) is staged

@@ -155,3 +155,25 @@ def test_create_on_missing_cuda_raises():
     _, gt = both_geoms(1.0, 1.0, 0.1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         gm_t.create(gt, gm_t.default_layer_fills(), device="cuda")
+
+
+@pytest.mark.parametrize("geom_args", GEOMS)
+def test_runtime_helpers_match_jax(geom_args):
+    """is_internal, is_finite_mask and submap_slices (the driver's, the
+    bridge's and the wire's helpers) answer as JAX's, submaps clipped at
+    every edge."""
+    gj, gt = both_geoms(*geom_args)
+    rng = np.random.default_rng(5)
+    elev = rng.normal(size=gj.shape).astype(np.float32)
+    elev[rng.random(gj.shape) < 0.3] = np.nan
+    sj = gm_j.create(gj, {"elevation": 0.0}).replace_layer("elevation", jnp.asarray(elev))
+    st = gm_t.create(gt, {"elevation": 0.0}, device="cpu").replace_layer(
+        "elevation", torch.tensor(elev))
+    assert_bits_equal(gm_j.is_finite_mask(sj, "elevation"), gm_t.is_finite_mask(st, "elevation"))
+    for name in ("elevation", "_kalman_p", "", "_"):
+        assert gm_t.is_internal(name) == gm_j.is_internal(name)
+    pos = np.array([0.35, -1.15], np.float32)
+    for center in ((0.0, 0.0), (2.0, -3.0), (-40.0, 7.0), (0.37, 0.12)):
+        for length in ((1.0, 2.0), (3.3, 0.7), (100.0, 100.0)):
+            assert (gm_t.submap_slices(gt, pos, center, length)
+                    == gm_j.submap_slices(gj, pos, center, length))

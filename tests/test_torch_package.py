@@ -28,16 +28,35 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
+def port_modules():
+    """The dotted names of every module of the port."""
+    names = []
+    for dirpath, _, files in os.walk(PACKAGE):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)[:-3]
+                names.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    return sorted(names)
+
+
 def test_import_leaves_jax_out():
+    """Importing every module of the port (and building a mapper and a
+    driver) loads no JAX and no module of the JAX package: not by name, and
+    not by path (no loaded module's file lies under ``fastdem_tpu/``)."""
+    modules = port_modules()
+    assert {"fastdem_tpu_torch.runtime.driver", "fastdem_tpu_torch.io.npz",
+            "fastdem_tpu_torch.tools.fastdem_replay", "fastdem_tpu_torch.presets",
+            "fastdem_tpu_torch.utils.colors"} <= set(modules)
+    jax_dir = os.path.join(ROOT, "fastdem_tpu") + os.sep
     code = (
-        "import sys; import fastdem_tpu_torch as fd; "
-        "import fastdem_tpu_torch.ops.polar_field, fastdem_tpu_torch.interop; "
-        "import fastdem_tpu_torch.cloud.pca, fastdem_tpu_torch.postprocess.stencil, "
-        "fastdem_tpu_torch.postprocess.inpainting, fastdem_tpu_torch.postprocess.smoothing, "
-        "fastdem_tpu_torch.postprocess.uncertainty_fusion, fastdem_tpu_torch.postprocess.features; "
+        "import importlib, os, sys; import fastdem_tpu_torch as fd; "
+        f"[importlib.import_module(m) for m in {modules!r}]; "
         "from fastdem_tpu_torch.postprocess import apply_postprocess_fn; "
+        "from fastdem_tpu_torch.runtime import MappingDriver; "
         "fd.FastDEM(fd.GridGeometry.from_length(2.0, 2.0, 0.1), fd.Config(), device='cpu'); "
+        "MappingDriver(fd.GridGeometry.from_length(2.0, 2.0, 0.1), device='cpu').close(); "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'fastdem_tpu.')) or m == 'fastdem_tpu'); "
+        f"bad += sorted(n for n, m in list(sys.modules.items()) if os.path.abspath(getattr(m, '__file__', None) or '').startswith({jax_dir!r})); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -53,6 +72,9 @@ def test_no_jax_import_in_sources():
         sources += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     sources.append(os.path.join(ROOT, "chip_smoke.py"))
     assert len(sources) > 10
+    for new in ("runtime/driver.py", "runtime/wire.py", "io/pcd.py", "tools/fastdem_node.py",
+                "mapping/pipeline.py", "config.py", "presets.py"):
+        assert os.path.join(PACKAGE, new) in sources, new
     for path in sources:
         with open(path) as f:
             assert not pattern.search(f.read()), path
