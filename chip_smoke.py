@@ -81,7 +81,32 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  loop: bit-identical on every layer, one K1 and one K4
                  launch per scan, ms/scan of each (CUDA events, three of
                  each in turns); the replay tool as a subprocess (64
-                 scans, batch 16).
+                 scans, batch 16); integrate_sequence with the poses as a
+                 list of CUDA tensors == the numpy call, bitwise.
+ 15. batch DEM -- build_dem (DEMConfig defaults: SOR k 20, std 1.0,
+                 floating-point cutoff 2 m, 3 inpainting passes) on a
+                 synthetic 100x100 m site at 0.1 m, 500,000 points (0.5%
+                 gross outliers, 5% floating 3-8 m up), intensity and
+                 colour: median ms over 5 runs after a warm-up of the grid
+                 kNN, SOR, remove_floating_points, rasterize_stats,
+                 inpaint and the whole build_dem, the grid certificate's
+                 hit rate and peak memory; voxel_grid and transform_cloud
+                 at 500K (nanoPCL's bars). The card against the port on the
+                 CPU on a 100,000-point crop: SOR and floating-point masks
+                 equal, count / min / max / touched exact, mean and
+                 variance to rtol 1e-5, inpainted elevation within 2e-6;
+                 grid kNN == knn_brute on 4,096 sampled queries, distances
+                 bitwise; the pcd2dem tool as a subprocess.
+ 16. rgbd     -- a 640x480 u16 depth image (307,200 pixels) of a ground
+                 plane with boxes seen by a camera pitched down:
+                 depth_to_cloud and camera_to_base_transform, 8 frames
+                 through FastDEM.integrate (flagship map, SensorType.RGBD)
+                 on the card against the CPU at the pipeline tolerances;
+                 ms per frame.
+ 17. repairs  -- the 200 m GLOBAL map with raycasting.method = "sampled"
+                 (the window off: rows mode over 4M cells), 3 scans, card
+                 against CPU. (Phase 13 runs the driver with its lock taken
+                 per scan; phase 14 the transforms as CUDA tensors.)
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -93,6 +118,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from types import SimpleNamespace
 
@@ -154,9 +180,24 @@ NODE_BURST = 8
 NODE_RATE_SCANS = 128
 GLOBAL_NODE_SCANS = 8
 VIZ_TICKS = 5
+LOCK_PROBE_S = 0.01
 REPLAY_SCANS = 64
 REPLAY_BATCH = 16
 TOOL_TIMEOUT_S = 240
+# The batch DEM (phase 15): BASELINE.md's nanoPCL scale.
+DEM_POINTS = 500_000
+DEM_SITE_M = 100.0
+DEM_CROP_POINTS = 100_000
+DEM_REPS = 5
+DEM_KNN_SAMPLE = 4096
+DEM_STATS_RTOL = 1e-5
+DEM_ELEV_ATOL = 2e-6
+# RGB-D (phase 16): BASELINE configuration 3.
+RGBD_FRAMES = 8
+RGBD_SHAPE = (480, 640)
+# The sampled raycast on the GLOBAL map (phase 17).
+SAMPLED_GLOBAL_SCANS = 3
+SAMPLED_GLOBAL_POINTS = 20000
 
 
 def terrain(x, y):
@@ -916,8 +957,6 @@ def feed_node(d, clouds):
 
 def wait_ticks(d, topic, n):
     """Block until the driver's ``topic`` sink has been called n times."""
-    import threading
-
     done = threading.Event()
     count = [0]
 
@@ -1050,7 +1089,24 @@ def node_rates(card, node_cfg):
     with node_driver(node_cfg, calib, odom, pp_rate=t.post_process_rate,
                      viz_rate=t.publish_rate, global_rate=t.global_publish_rate, **kw) as d:
         ticked = wait_ticks(d, "map", VIZ_TICKS)
+        waits, stop = [], threading.Event()
+
+        def probe():
+            # How long a reader waits for the driver's lock while scans
+            # come in: one scan's integrate at most, with the lock per scan.
+            while not stop.wait(LOCK_PROBE_S):
+                t0 = time.perf_counter()
+                with d._lock:
+                    waits.append((time.perf_counter() - t0) * 1e3)
+
+        prober = threading.Thread(target=probe)
+        prober.start()
         secs = feed_node(d, clouds)
+        stop.set()
+        prober.join()
+        print(f"node driver lock, waited by a reader every {LOCK_PROBE_S * 1e3!r} ms while "
+              f"scans came in: {len(waits)} waits, median {float(np.median(waits))!r} ms, "
+              f"p90 {float(np.percentile(waits, 90))!r} ms, max {max(waits)!r} ms on {card}")
         if not ticked.wait(timeout=30.0):
             raise AssertionError("the node's viz timer did not tick")
         print(f"node, the preset's timers (viz {t.publish_rate!r} Hz, global "
@@ -1173,9 +1229,309 @@ def phase_replay(card):
     if differ:
         raise AssertionError(f"batched replay differs from the loop on {differ}")
     check_map("replay", geom, results["sequence"][0], "kalman", 17000)
+    # Transforms as a list of CUDA tensors, one per cloud.
+    m = fd.FastDEM(geom, flagship_config(), device="cuda")
+    n = m.integrate_sequence(clouds, torch.as_tensor(T_bs, device="cuda"),
+                             [torch.as_tensor(T, device="cuda") for T in poses])
+    differ = [k for k, v in loop_state.layers.items()
+              if not torch.equal(m.state.layers[k].view(torch.int32), v.view(torch.int32))]
+    print(f"replay: integrate_sequence with the poses as a list of {n} CUDA tensors, "
+          f"layers differing bitwise from the loop: {differ}")
+    if n != REPLAY_SCANS or differ:
+        raise AssertionError(f"integrate_sequence with CUDA tensor poses: {n} scans, {differ}")
     run_tool(["fastdem_tpu_torch.tools.fastdem_replay", "--preset", "local_mapping",
               "--synthetic", str(REPLAY_SCANS), "--batch", str(REPLAY_BATCH)])
     return launches
+
+
+def median_ms(fn, reps=DEM_REPS):
+    """Median host ms of fn() over ``reps`` runs after one warm-up, each run
+    synchronised with the card (the stages read counts and bounds back)."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(runs)), runs
+
+
+def dem_stages(cloud, cfg):
+    """build_dem's stages one by one: (SOR cloud, geometry, position,
+    floating-point-filtered cloud, stats, inpainted elevation)."""
+    from fastdem_tpu_torch.cloud import filters
+    from fastdem_tpu_torch.mapping import batch
+    from fastdem_tpu_torch.mapping.rasterize import rasterize_stats
+    from fastdem_tpu_torch.postprocess.inpainting import inpaint
+    from fastdem_tpu_torch.utils.colors import pack_rgb
+
+    sor = filters.statistical_outlier_removal(cloud, cfg.sor_k, cfg.sor_std_mul)
+    geom, position = batch.bbox_geometry(sor.xyz, sor.mask, cfg.resolution)
+    flt = batch.remove_floating_points(sor, geom, position, cfg.height_threshold,
+                                       cfg.resolution)
+    pos = torch.as_tensor(position, device=cloud.device)
+    stats = rasterize_stats(geom, pos, flt.xyz, flt.mask, flt.channels["intensity"],
+                            pack_rgb(flt.channels["color"]))
+    elev = inpaint(stats.max_z, cfg.inpaint_iterations, min_valid_neighbors=2)
+    return sor, geom, position, flt, stats, elev
+
+
+def phase_batch_dem(card):
+    """Phase 15: the batch DEM at 500K points on the card, its stage times,
+    and the card against the CPU on a 100K crop."""
+    import tempfile
+
+    from fastdem_tpu_torch.cloud import filters, search, transform
+    from fastdem_tpu_torch.io import pcd as pcd_io
+    from fastdem_tpu_torch.mapping import batch
+    from fastdem_tpu_torch.mapping.rasterize import rasterize_stats
+    from fastdem_tpu_torch.postprocess.inpainting import inpaint
+    from fastdem_tpu_torch.tools.common import site_terrain, synthetic_site
+    from fastdem_tpu_torch.utils.colors import pack_rgb
+
+    xyz, inten, col = synthetic_site(DEM_POINTS, DEM_SITE_M, seed=5)
+    cloud = fd.cloud.from_numpy(xyz, intensity=inten, color=col, device="cuda")
+    cfg = batch.DEMConfig()
+    sor, geom, position, flt, stats, _ = dem_stages(cloud, cfg)
+    pos = torch.as_tensor(position, device="cuda")
+    T = transform.from_rpy(0.1, -0.05, 0.7, t=(3.0, -2.0, 0.5), device="cuda")
+    knn_out = {}
+
+    def knn_grid():
+        knn_out["r"] = search.knn(cloud.xyz, cloud.mask, cfg.sor_k, method="grid")
+
+    stages = [
+        ("knn (grid, k 20)", knn_grid),
+        ("statistical_outlier_removal", lambda: filters.statistical_outlier_removal(
+            cloud, cfg.sor_k, cfg.sor_std_mul).mask.sum()),
+        ("remove_floating_points", lambda: batch.remove_floating_points(
+            sor, geom, position, cfg.height_threshold, cfg.resolution).mask.sum()),
+        ("rasterize_stats", lambda: rasterize_stats(
+            geom, pos, flt.xyz, flt.mask, flt.channels["intensity"],
+            pack_rgb(flt.channels["color"]))),
+        ("inpaint (3 passes)", lambda: inpaint(stats.max_z, cfg.inpaint_iterations,
+                                               min_valid_neighbors=2)),
+        ("voxel_grid (0.1 m, centroid)", lambda: filters.voxel_grid(
+            cloud, 0.1, filters.VoxelMode.CENTROID).mask.sum()),
+        ("transform_cloud", lambda: transform.transform_cloud(cloud, T)),
+    ]
+    times = {}
+    for name, fn in stages:
+        times[name] = median_ms(fn)
+        if name.startswith("knn"):
+            grid = search.last_grid_stats
+            first = grid["passes"][0]
+            print(f"batch DEM: knn grid certificate hit rate {first['certified'] / first['rows']!r} "
+                  f"in the first pass (bucket {first['bucket']!r} m, cap {first['cap']}); "
+                  f"passes {grid['passes']}; {grid['fallback']} of {grid['queries']} "
+                  f"queries took the brute tile")
+    # Where the kNN's time goes: its first grid pass over every query, and
+    # the brute tile on as many queries as took it (its cost does not
+    # depend on which).
+    grid = search.last_grid_stats
+    b0, cap0 = grid["passes"][0]["bucket"], grid["passes"][0]["cap"]
+
+    def first_pass():
+        g = search.DenseGrid(cloud.xyz, cloud.mask, b0, max_cells=search._GRID_MAX_CELLS)
+        g.knn(cloud.xyz, cfg.sor_k, cap=cap0, self_pos=g.inv_order)
+
+    tail = torch.as_tensor(np.random.default_rng(2).choice(DEM_POINTS, max(1, grid["fallback"]),
+                                                             replace=False), device="cuda")
+    times["knn: first grid pass"] = median_ms(first_pass, 3)
+    times[f"knn: brute tile, {int(tail.numel())} queries"] = median_ms(
+        lambda: search.knn_brute(cloud.xyz, cloud.mask, cfg.sor_k, queries=cloud.xyz[tail],
+                                 self_indices=tail), 3)
+    torch.cuda.reset_peak_memory_stats()
+    times["build_dem"] = median_ms(lambda: batch.build_dem(cloud, cfg))
+    peak = torch.cuda.max_memory_allocated()
+    for name, (ms, runs) in times.items():
+        print(f"batch DEM {DEM_POINTS} points: {name} median {ms!r} ms over {len(runs)} runs "
+              f"{[round(r, 3) for r in runs]} on {card}")
+    print(f"batch DEM: peak memory during build_dem {peak} bytes ({peak / 2**30!r} GiB)")
+    dgeom, state = batch.build_dem(cloud, cfg)
+    elev = state.layers["elevation"]
+    x, y = dgeom.cell_centers(state.position)
+    truth = site_terrain(x.cpu().numpy().astype(np.float64), y.cpu().numpy().astype(np.float64))
+    e = elev.cpu().numpy()
+    mapped = np.isfinite(e)
+    med = float(np.median(np.abs(e[mapped] - truth[mapped])))
+    print(f"batch DEM: {dgeom.rows}x{dgeom.cols} cells, {mapped.mean()!r} mapped, "
+          f"median |elevation - terrain| {med!r} m; SOR kept {int(sor.mask.sum())}, "
+          f"floating-point removal kept {int(flt.mask.sum())} of {DEM_POINTS}")
+    if not (mapped.mean() > 0.99 and med < 0.05 and dgeom.rows >= 990):
+        raise AssertionError("batch DEM fails the coverage / terrain check")
+
+    # Grid kNN against the brute tile on sampled queries, on the card.
+    rng = np.random.default_rng(1)
+    sel = torch.as_tensor(rng.choice(DEM_POINTS, DEM_KNN_SAMPLE, replace=False), device="cuda")
+    gi, gd = knn_out["r"]
+    bi, bd = search.knn_brute(cloud.xyz, cloud.mask, cfg.sor_k, queries=cloud.xyz[sel],
+                              self_indices=sel)
+    same_d = torch.equal(gd[sel].view(torch.int32), bd.view(torch.int32))
+    same_i = int((gi[sel] != bi).any(dim=1).sum())
+    print(f"batch DEM: grid kNN vs knn_brute on {DEM_KNN_SAMPLE} queries: distances "
+          f"bitwise equal {same_d}, rows with another index {same_i}")
+    if not same_d:
+        raise AssertionError("grid kNN distances differ from the brute tile")
+
+    # The card against the CPU on a crop.
+    half = DEM_SITE_M / 2 * np.sqrt(DEM_CROP_POINTS / DEM_POINTS)
+    keep = (np.abs(xyz[:, 0]) <= half) & (np.abs(xyz[:, 1]) <= half)
+    crop = {dev: fd.cloud.from_numpy(xyz[keep], intensity=inten[keep], color=col[keep],
+                                     device=dev) for dev in ("cpu", "cuda")}
+    t0 = time.perf_counter()
+    ref = dem_stages(crop["cpu"], cfg)
+    cpu_s = time.perf_counter() - t0
+    got = dem_stages(crop["cuda"], cfg)
+    _, got_state = batch.build_dem(crop["cuda"], cfg)
+    bad = []
+    for what, a, b in (("SOR mask", ref[0].mask, got[0].mask),
+                       ("floating-point mask", ref[3].mask, got[3].mask)):
+        if not torch.equal(a, b.cpu()):
+            bad.append(what)
+    for name in ("count", "min_z", "max_z", "touched"):
+        a, b = getattr(ref[4], name), getattr(got[4], name).cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            bad.append(name)
+    for name in ("mean", "variance"):
+        a, b = getattr(ref[4], name).numpy(), getattr(got[4], name).cpu().numpy()
+        if not np.allclose(b, a, rtol=DEM_STATS_RTOL, atol=1e-9, equal_nan=True):
+            bad.append(name)
+    e_ref = ref[5].numpy()
+    for what, e_got in (("inpainted elevation", got[5]),
+                        ("build_dem elevation", got_state.layers["elevation"])):
+        e_got = e_got.cpu().numpy()
+        if not (np.array_equal(np.isnan(e_ref), np.isnan(e_got))
+                and np.nanmax(np.abs(e_ref - e_got)) <= DEM_ELEV_ATOL):
+            bad.append(what)
+    print(f"batch DEM crop ({int(keep.sum())} points, {ref[1].rows}x{ref[1].cols} cells): "
+          f"card vs CPU (CPU {cpu_s!r} s), failing: {bad}; SOR kept {int(got[0].mask.sum())}, "
+          f"floating-point removal kept {int(got[3].mask.sum())}")
+    if bad:
+        raise AssertionError(f"batch DEM card vs CPU: {bad}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "site.pcd"), os.path.join(tmp, "dem.pcd")
+        if not pcd_io.save_pcd(src, crop["cpu"]):
+            raise AssertionError("save_pcd failed")
+        lines = run_tool(["fastdem_tpu_torch.tools.pcd2dem", src, dst, "0.1"])
+        back = pcd_io.load_pcd(dst, device="cpu")
+        print(f"pcd2dem tool: {back.capacity} DEM points; {lines[-1]}")
+        if back.capacity < 0.9 * ref[1].num_cells:
+            raise AssertionError("the pcd2dem tool wrote too few points")
+    return times
+
+
+def depth_image(cam_pos, R_wc, fx, fy, cx, cy, boxes):
+    """u16 depth (mm) of the ground plane z = 0 and boxes (lo, hi corners),
+    seen from a camera at ``cam_pos`` with rotation R_wc (optical frame ->
+    world); 0 where a ray meets nothing within 10 m."""
+    H, W = RGBD_SHAPE
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    d = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], -1) @ R_wc.T
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.where(d[..., 2] < -1e-9, -cam_pos[2] / d[..., 2], np.inf)
+        for lo, hi in boxes:
+            t1 = (np.asarray(lo) - cam_pos) / d
+            t2 = (np.asarray(hi) - cam_pos) / d
+            tmin = np.minimum(t1, t2).max(-1)
+            tmax = np.maximum(t1, t2).min(-1)
+            hit = (tmax >= tmin) & (tmin > 0)
+            t = np.where(hit, np.minimum(t, tmin), t)
+    t = np.where(t < 10.0, t, 0.0)  # depth along the optical axis: d_c z = 1
+    return np.round(t * 1000.0).astype(np.uint16)
+
+
+def phase_rgbd(card):
+    """Phase 16: depth frames through depth_to_cloud and the RGB-D sensor
+    model into the flagship map, card against CPU; ms per frame."""
+    from fastdem_tpu_torch.cloud import depth as dep
+    from fastdem_tpu_torch.cloud import transform
+
+    fx = fy = 525.0
+    cx, cy = 319.5, 239.5
+    pitch = np.deg2rad(35.0)
+    R_level = dep.camera_to_base_transform()[:3, :3]
+    R_pitch = transform.from_rpy(0.0, pitch, 0.0, device="cpu").numpy()[:3, :3]
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[:3, :3] = R_pitch @ R_level
+    T_bs[:3, 3] = (0.2, 0.0, 1.0)
+    boxes = [((2.0, -0.8, 0.0), (2.6, -0.2, 0.4)), ((3.0, 0.3, 0.0), (3.5, 1.0, 0.7)),
+             ((4.2, -1.5, 0.0), (5.0, -0.6, 0.25)), ((5.5, 0.5, 0.0), (6.0, 1.6, 1.0))]
+    frames, poses = [], []
+    for k in range(RGBD_FRAMES):
+        T_wb = np.eye(4, dtype=np.float32)
+        T_wb[0, 3] = 0.25 * k
+        T_wc = T_wb.astype(np.float64) @ T_bs.astype(np.float64)
+        frames.append(depth_image(T_wc[:3, 3], T_wc[:3, :3], fx, fy, cx, cy, boxes))
+        poses.append(T_wb)
+    npix = frames[0].size
+
+    def config():
+        cfg = flagship_config()
+        cfg.sensor_model.type = fd.SensorType.RGBD
+        return cfg
+
+    def run(device):
+        m = fd.FastDEM(flagship_geom(), config(), device=device)
+        clouds = []
+        for k in range(RGBD_FRAMES):
+            c = dep.depth_to_cloud(torch.as_tensor(frames[k].astype(np.int32), device=device),
+                                   fx, fy, cx, cy, depth_scale=1e-3)
+            if c.capacity != npix:
+                raise AssertionError(f"depth_to_cloud made {c.capacity} points")
+            clouds.append(c.valid_count)
+            if not m.integrate(c, T_bs, poses[k]):
+                raise AssertionError(f"rgbd frame {k} refused")
+        return m, clouds
+
+    run("cuda")  # warm-up
+    torch.cuda.synchronize()
+    k1.launches = k4.launches = 0
+    t0 = time.perf_counter()
+    gpu, valid = run("cuda")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / RGBD_FRAMES
+    l1, l4 = k1.launches, k4.launches
+    cpu, _ = run("cpu")
+    elev = gpu.state.layers["elevation"].cpu().numpy()
+    mapped = int(np.isfinite(elev).sum())
+    print(f"rgbd: {RGBD_FRAMES} frames of {npix} pixels ({min(valid)}-{max(valid)} valid "
+          f"points), {ms!r} ms per frame (depth_to_cloud + integrate, host clock) on {card}; "
+          f"{mapped} mapped cells, elevation {float(np.nanmin(elev))!r}.."
+          f"{float(np.nanmax(elev))!r} m; K1/K4 launches {l1}/{l4}")
+    if mapped < 1000 or abs(float(np.nanmedian(elev))) > 0.05 or not (
+            0.2 < float(np.nanmax(elev)) <= 1.01):
+        raise AssertionError("rgbd map fails the coverage / ground / box-height check")
+    check_parity("rgbd", cpu.state, gpu.state)
+    return l1, l4
+
+
+def phase_sampled_global(card):
+    """Phase 17: the sampled raycast on the 200 m GLOBAL map (window off,
+    so rows mode over 4M cells), card against CPU."""
+    cfg = global_config()
+    cfg.raycasting.method = "sampled"
+    geom = global_geom()
+    scans, T_bs, poses = global_session_scans(SAMPLED_GLOBAL_SCANS, seed=23)
+    scans = scans[:, :SAMPLED_GLOBAL_POINTS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu, oow = run_session("cuda", geom, cfg, scans, T_bs, poses)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / SAMPLED_GLOBAL_SCANS
+    if any(o is not None for o in oow):
+        raise AssertionError("the sampled raycast ran windowed")
+    check_map("sampled global", geom, gpu, "kalman", 20000)
+    cpu, _ = run_session("cpu", geom, cfg, scans, T_bs, poses)
+    check_parity("sampled global", cpu.state, gpu.state)
+    print(f"sampled global: {SAMPLED_GLOBAL_SCANS} scans of {SAMPLED_GLOBAL_POINTS} points "
+          f"on {geom.rows}x{geom.cols} cells (rows mode, no window), {ms!r} ms/scan "
+          f"(host clock, first scans) on {card}")
 
 
 def main() -> int:
@@ -1279,6 +1635,15 @@ def main() -> int:
 
     # ---- 14. batched replay ----
     add_launches(*phase_replay(card))
+
+    # ---- 15. the batch DEM ----
+    phase_batch_dem(card)
+
+    # ---- 16. RGB-D ----
+    add_launches(*phase_rgbd(card))
+
+    # ---- 17. the repairs: sampled raycast on the GLOBAL map ----
+    phase_sampled_global(card)
 
     k1_main = k1_ms["flagship"]
     k4_main = k4_ms["global"]

@@ -1,6 +1,7 @@
-"""Point clouds: the fixed-capacity container and SE(3) transforms."""
+"""Point clouds: the fixed-capacity container, SE(3) transforms, neighbour
+search, filters and depth images."""
 
-from fastdem_tpu_torch.cloud import pointcloud, transform  # noqa: F401
+from fastdem_tpu_torch.cloud import depth, filters, pointcloud, search, transform  # noqa: F401
 from fastdem_tpu_torch.cloud.pointcloud import (  # noqa: F401
     PointCloud,
     compact_to_bucket,

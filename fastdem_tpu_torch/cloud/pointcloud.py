@@ -1,5 +1,4 @@
-"""Fixed-capacity SoA point cloud (port of ``fastdem_tpu/cloud/pointcloud.py``,
-the part the facade, the IO and the runtime use).
+"""Fixed-capacity SoA point cloud (port of ``fastdem_tpu/cloud/pointcloud.py``).
 
 A cloud holds f32[N, 3] points, a bool[N] validity mask and optional named
 channels, all on one device. Padding rows have mask False and xyz set to a
@@ -78,6 +77,16 @@ class PointCloud:
 
     def has(self, channel: str) -> bool:
         return channel in self.channels
+
+    def with_channel(self, name: str, value: torch.Tensor) -> "PointCloud":
+        ch = dict(self.channels)
+        ch[name] = value
+        return dataclasses.replace(self, channels=ch)
+
+    def with_mask(self, mask: torch.Tensor) -> "PointCloud":
+        # The new mask's population is unknown on the host: the
+        # construction-time count is dropped rather than left stale.
+        return dataclasses.replace(self, mask=mask, valid_count=-1)
 
     def with_frame(self, frame_id: str) -> "PointCloud":
         return dataclasses.replace(self, frame_id=frame_id)
@@ -244,3 +253,55 @@ def compact_to_bucket(cloud: PointCloud, base: int = 4096) -> PointCloud:
     )
     # A nonempty frame whose points were all filtered out stays nonempty.
     return dataclasses.replace(out, nominal_count=cloud.nominal_count)
+
+
+def extract(cloud: PointCloud, indices) -> PointCloud:
+    """New exact-size cloud of the given point indices, every channel
+    carried, on the cloud's device. Indices of masked-out points are
+    dropped."""
+    xyz, mask, ch = host_arrays(cloud)
+    idx = np.asarray(
+        indices.cpu() if isinstance(indices, torch.Tensor) else indices,
+        dtype=np.int64,
+    ).reshape(-1)
+    keep = idx[mask[idx]]
+    return from_numpy(
+        xyz[keep],
+        frame_id=cloud.frame_id,
+        timestamp_ns=cloud.timestamp_ns,
+        device=cloud.device,
+        **{k: v[keep] for k, v in ch.items()},
+    )
+
+
+def erase(cloud: PointCloud, indices) -> PointCloud:
+    """New exact-size cloud without the given point indices; masked-out
+    points are dropped too."""
+    drop = np.zeros(cloud.capacity, dtype=bool)
+    drop[np.asarray(
+        indices.cpu() if isinstance(indices, torch.Tensor) else indices,
+        dtype=np.int64,
+    ).reshape(-1)] = True
+    keep = np.flatnonzero(cloud.mask.cpu().numpy() & ~drop)
+    return extract(cloud, keep)
+
+
+def merge(a: PointCloud, b: PointCloud) -> PointCloud:
+    """Concatenate two clouds (on ``a``'s device). A channel present in
+    only one input is zero-filled in the other."""
+    dev = a.device
+    ch = {}
+    for name in sorted(set(a.channels) | set(b.channels)):
+        va, vb = a.channels.get(name), b.channels.get(name)
+        if va is None:
+            va = torch.zeros((a.capacity,) + tuple(vb.shape[1:]), dtype=vb.dtype, device=dev)
+        if vb is None:
+            vb = torch.zeros((b.capacity,) + tuple(va.shape[1:]), dtype=va.dtype, device=dev)
+        ch[name] = torch.cat([va, vb.to(dev)])
+    return PointCloud(
+        xyz=torch.cat([a.xyz, b.xyz.to(dev)]),
+        mask=torch.cat([a.mask, b.mask.to(dev)]),
+        channels=ch,
+        frame_id=a.frame_id,
+        timestamp_ns=a.timestamp_ns,
+    )

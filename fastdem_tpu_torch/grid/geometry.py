@@ -27,7 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from fastdem_tpu_torch.numerics import recip_f32
+from fastdem_tpu_torch.numerics import div_f32, recip_f32
 
 _I32_MIN = -(2**31)
 _I32_MAX = 2**31 - 1
@@ -81,19 +81,27 @@ class GridGeometry:
         oy = position[1] + 0.5 * self.cols * self.resolution
         return ox, oy
 
-    def index_of(self, position: torch.Tensor, xy: torch.Tensor):
-        """World points f32[..., 2] -> (row i32, col i32, inside bool)."""
+    def index_of(self, position: torch.Tensor, xy: torch.Tensor, true_div: bool = False):
+        """World points f32[..., 2] -> (row i32, col i32, inside bool).
+
+        The division by the resolution is the compiled step's multiply by
+        its float32 reciprocal, or with ``true_div`` the reference's eager
+        true division (its batch DEM path)."""
         ox, oy = self.origin(position)
-        inv = recip_f32(self.resolution)
-        r = floor_i32((ox - xy[..., 0]) * inv)
-        c = floor_i32((oy - xy[..., 1]) * inv)
+        if true_div:
+            r = floor_i32(div_f32(ox - xy[..., 0], self.resolution))
+            c = floor_i32(div_f32(oy - xy[..., 1], self.resolution))
+        else:
+            inv = recip_f32(self.resolution)
+            r = floor_i32((ox - xy[..., 0]) * inv)
+            c = floor_i32((oy - xy[..., 1]) * inv)
         inside = (r >= 0) & (r < self.rows) & (c >= 0) & (c < self.cols)
         return r, c, inside
 
-    def cell_id_of(self, position: torch.Tensor, xy: torch.Tensor):
+    def cell_id_of(self, position: torch.Tensor, xy: torch.Tensor, true_div: bool = False):
         """Flattened cell ids (r * cols + c); points outside the map get the
         dump-slot id ``num_cells``."""
-        r, c, inside = self.index_of(position, xy)
+        r, c, inside = self.index_of(position, xy, true_div)
         flat = r * self.cols + c
         return torch.where(inside, flat, self.num_cells), inside
 

@@ -43,7 +43,7 @@ from fastdem_tpu_torch.cloud import pointcloud as pc
 from fastdem_tpu_torch.cloud import transform as tfm
 from fastdem_tpu_torch.config import Config, EstimationType, MappingMode
 from fastdem_tpu_torch.device import resolve_device
-from fastdem_tpu_torch.numerics import recip_f32, sum_sq3
+from fastdem_tpu_torch.numerics import recip_f32, sum_sq
 from fastdem_tpu_torch.grid import gridmap
 from fastdem_tpu_torch.grid.geometry import GridGeometry
 from fastdem_tpu_torch.grid.gridmap import GridMapState, layers
@@ -381,13 +381,9 @@ def _build_phases(
         and 2 * upd_wr * upd_wc <= geom.num_cells
         and not sampled
     )
-    eff_cells = upd_wr * upd_wc if windowed else geom.num_cells
-    if eff_cells > (1 << 19):
-        raise _not_ported(
-            "the rows->packed rasterizer switch above 2^19 cells of an "
-            "unwindowed map or window",
-            "section 3, the rows->packed note",
-        )
+    # Rows mode at any size: the reference switches to a packed rasterizer
+    # above 2^19 cells only because the TPU pads the row table to 128
+    # lanes; the card does not (4M cells x 4 lanes is ~64 MB).
     if cfg.raycasting.enabled and not sampled:
         # The per-cell lookups scale with the map: on maps larger than the
         # ray range, only a sensor-centred window is resampled (the update
@@ -432,7 +428,7 @@ def _build_phases(
         z_var = sensor.z_variance_world(xyz, r3)
 
         xyz_base = tfm.transform_points(xyz, T_bs)
-        d2 = sum_sq3(xyz_base)
+        d2 = sum_sq(xyz_base)
         keep = (
             mask
             & (d2 >= rmin2)
@@ -869,8 +865,10 @@ class FastDEM:
 
 
 def _host_f32(T) -> np.ndarray:
-    """A transform (numpy, a sequence or a tensor on any device) as host
-    f32."""
+    """A transform (numpy, a tensor on any device, or a list or tuple of
+    either) as host f32."""
     if isinstance(T, torch.Tensor):
         T = T.detach().cpu()
+    elif isinstance(T, (list, tuple)):
+        T = [t.detach().cpu() if isinstance(t, torch.Tensor) else t for t in T]
     return np.asarray(T, dtype=np.float32)

@@ -1,5 +1,5 @@
-"""Point-to-cell rasterization (port of ``rasterize_scatter_rows`` in
-``fastdem_tpu/mapping/rasterize.py``).
+"""Point-to-cell rasterization (port of ``rasterize_scatter_rows`` and
+``rasterize_stats`` in ``fastdem_tpu/mapping/rasterize.py``).
 
 Every per-cell reduction is one lane of a single int32 row scatter-min
 into a [ncell+1, L] table (row ``ncell`` is the dump slot of invalid
@@ -13,7 +13,9 @@ points):
   lane 2: ordered(-z) -- exact max z.
   lane 3 (optional): ordered(-intensity).
   32 lanes (voxel_count_mode="exact"): distinct-z-voxel presence -- lane k
-          gets 0 iff a point's (zbin mod 32) == k.
+          gets 0 iff a point's (zbin mod 32) == k. Above 2^23 table
+          entries the lanes are dropped and the count comes from one
+          representative point per voxel (``filters.unique_mask_of``).
 
 ``ordered`` is the monotone f32 <-> int32 bit map, so the int32 min is the
 float min, bit for bit. The argmin-carried channels come from one index
@@ -35,6 +37,8 @@ from fastdem_tpu_torch.grid.geometry import GridGeometry, floor_i32
 _IMAX = 0x7FFFFFFF
 _INF = float("inf")
 _ZB = 32  # z-presence lanes per cell
+_ORD_INF = 0x7F800000  # ordered(+inf)
+_ORD_NINF = -0x7F800001  # ordered(-inf)
 
 
 @dataclasses.dataclass
@@ -152,12 +156,6 @@ def rasterize_scatter_rows(
         and voxel_count_mode == "exact"
         and (ncell + 1) * (len(lanes) + _ZB) <= (1 << 23)
     )
-    if with_voxel_count and voxel_count_mode == "exact" and not vox_in_rows:
-        raise NotImplementedError(
-            "the exact voxel count above (ncell+1)*(L+32) > 2^23 table "
-            "entries (voxel_unique_mask fallback) is not ported yet "
-            "(ROADMAP section 3, the voxel-count switch)"
-        )
     vox_lane0 = None
     if vox_in_rows:
         vox_lane0 = len(lanes)
@@ -209,6 +207,17 @@ def rasterize_scatter_rows(
             .to(torch.float32)
             .reshape(shape)
         )
+    elif with_voxel_count and voxel_count_mode == "exact":
+        # Above 2^23 table entries: one representative point per z-voxel
+        # (side = resolution), counted into its cell.
+        from fastdem_tpu_torch.cloud.filters import unique_mask_of
+
+        vm = unique_mask_of(floor_i32(xyz * recip_f32(geom.resolution)), valid)
+        voxel_count = (
+            torch.zeros(ncell + 1, dtype=torch.float32, device=dev)
+            .index_add_(0, ids.long(), vm.to(torch.float32))[:ncell]
+            .reshape(shape)
+        )
     elif with_voxel_count:  # "span"
         inv = recip_f32(geom.resolution)
         lo = torch.floor(min_z * inv)
@@ -227,4 +236,100 @@ def rasterize_scatter_rows(
         color=color,
         voxel_count=voxel_count,
         extra=extra,
+    )
+
+
+@dataclasses.dataclass
+class CellStats:
+    """Batch per-cell statistics (the offline DEM path)."""
+
+    mean: torch.Tensor
+    variance: torch.Tensor
+    min_z: torch.Tensor
+    max_z: torch.Tensor
+    count: torch.Tensor
+    touched: torch.Tensor
+    max_intensity: Optional[torch.Tensor]
+    color: Optional[torch.Tensor]
+
+
+def rasterize_stats(
+    geom: GridGeometry,
+    position: torch.Tensor,
+    xyz: torch.Tensor,
+    mask: torch.Tensor,
+    intensity: Optional[torch.Tensor] = None,
+    color_packed: Optional[torch.Tensor] = None,
+) -> CellStats:
+    """Per-cell count / mean / sample variance / min / max of a whole cloud.
+
+    Sums are taken around a per-cell pivot (the cell's min z) for
+    stability: var = (sum_sq - sum^2 / n) / (n - 1). Min, max and count
+    come from scatter min / max / add, the sums from ``index_add_`` (on
+    the CPU in point order; on CUDA its atomics add in any order, so the
+    mean and variance may differ in the last bits). The colour is the
+    min-z point's, the smallest packed colour on ties. Cell ids use the
+    reference's eager true division.
+    """
+    ncell = geom.num_cells
+    shape = geom.shape
+    dev = xyz.device
+    ids, inside = geom.cell_id_of(position, xyz[:, :2], true_div=True)
+    valid = mask & inside
+    ids = torch.where(valid, ids, ncell).long()
+    safe = ids.clamp_max(ncell - 1)
+
+    def reduce(vals, how, fill):
+        t = torch.full((ncell + 1,), fill, dtype=vals.dtype, device=dev)
+        return t.scatter_reduce_(0, ids, vals, how, include_self=True)[:ncell]
+
+    def add(vals):
+        t = torch.zeros(ncell + 1, dtype=torch.float32, device=dev)
+        return t.index_add_(0, ids, vals)[:ncell]
+
+    # Min / max through the ordered int32 map: -0.0 orders below +0.0, on
+    # every device.
+    z = xyz[:, 2]
+    oz = _f32_ordered_i32(z)
+    zmin = _i32_ordered_f32(reduce(torch.where(valid, oz, _ORD_INF), "amin", _ORD_INF))
+    zmax = _i32_ordered_f32(reduce(torch.where(valid, oz, _ORD_NINF), "amax", _ORD_NINF))
+    cnt = add(valid.to(torch.float32))
+    touched = cnt > 0
+    pivot = torch.where(touched, zmin, 0.0)
+    dz = torch.where(valid, z - pivot[safe], 0.0)
+    s1 = add(dz)
+    s2 = add(dz * dz)
+    den = torch.clamp_min(cnt, 1.0)
+    mean = pivot + s1 / den
+    var = torch.where(
+        cnt >= 2.0,
+        torch.clamp_min(s2 - s1 * s1 / den, 0.0) / torch.clamp_min(cnt - 1.0, 1.0),
+        0.0,
+    )
+
+    nan = float("nan")
+    max_intensity = None
+    if intensity is not None:
+        oi = torch.where(valid, _f32_ordered_i32(intensity), _ORD_NINF)
+        mi = _i32_ordered_f32(reduce(oi, "amax", _ORD_NINF))
+        max_intensity = torch.where(torch.isfinite(mi), mi, nan).reshape(shape)
+
+    color = None
+    if color_packed is not None:
+        # Packed colours are non-negative float bit patterns: their int32
+        # views order as the floats do, subnormals included.
+        at_min = valid & (z == zmin[safe])
+        bits = color_packed.contiguous().view(torch.int32)
+        c = reduce(torch.where(at_min, bits, _IMAX), "amin", _IMAX)
+        color = torch.where(c != _IMAX, c.view(torch.float32), nan).reshape(shape)
+
+    return CellStats(
+        mean=torch.where(touched, mean, nan).reshape(shape),
+        variance=torch.where(touched, var, nan).reshape(shape),
+        min_z=torch.where(touched, zmin, nan).reshape(shape),
+        max_z=torch.where(touched, zmax, nan).reshape(shape),
+        count=cnt.reshape(shape),
+        touched=touched.reshape(shape),
+        max_intensity=max_intensity,
+        color=color,
     )

@@ -7,6 +7,11 @@ fused multiply-adds, and rounds ``sqrt`` correctly. PyTorch's CPU float32
 Python scalar through its reciprocal, and two separate ops never fuse. The
 helpers below pin one rounding on every device; the port uses them where a
 last-bit difference can move a point or a ray across a bin boundary.
+
+Outside a compiled step (the reference's eager paths: the filters, the
+batch DEM) ``x / c`` is a true division, which ``div_f32`` gives on every
+device, and a sum along a short axis adds its terms left to right
+(``sum_seq``).
 """
 
 from __future__ import annotations
@@ -36,8 +41,28 @@ def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a.double() * b + c).float()
 
 
-def sum_sq3(v: torch.Tensor) -> torch.Tensor:
-    """x^2 + y^2 + z^2 of f32[..., 3], accumulated as the reference does:
-    fma(z, z, fma(y, y, x * x))."""
-    x, y, z = v[..., 0], v[..., 1], v[..., 2]
-    return fma_f32(z, z, fma_f32(y, y, x * x))
+def sum_sq(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum of squares along ``dim``, accumulated as the reference's compiled
+    reductions do: v0 * v0, then one FMA per further term (for xyz:
+    fma(z, z, fma(y, y, x * x)))."""
+    acc = v.select(dim, 0) * v.select(dim, 0)
+    for i in range(1, v.shape[dim]):
+        acc = fma_f32(v.select(dim, i), v.select(dim, i), acc)
+    return acc
+
+
+def div_f32(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c with one float32 rounding on every device. ``c`` goes in as a
+    0-dim tensor on x's device: CUDA divides by a Python scalar through its
+    reciprocal, but divides tensors exactly."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+def sum_seq(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum along ``dim`` adding the terms left to right, one rounding per
+    add (the reference's order for a short axis; torch's own sum blocks
+    it differently)."""
+    s = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        s = s + x.select(dim, i)
+    return s

@@ -60,6 +60,37 @@ def build_kernels() -> None:
     k4.library()
 
 
+class _HandoffLock:
+    """The driver's reentrant lock, which a burst hands to waiting readers
+    between its scans. A plain lock is not fair: the intake thread would
+    take it back at once after each scan, and a timer tick waiting for it
+    would wait for the whole burst."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._cond = threading.Condition(threading.Lock())
+        self.waiting = 0
+
+    def __enter__(self):
+        with self._cond:
+            self.waiting += 1
+            self._cond.notify_all()
+        self._lock.acquire()
+        with self._cond:
+            self.waiting -= 1
+            self._cond.notify_all()
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+
+    def let_waiters_in(self, timeout: float = 1.0) -> None:
+        """Called without the lock held: wait until the threads waiting for
+        the lock have taken it."""
+        with self._cond:
+            self._cond.wait_for(lambda: self.waiting == 0, timeout)
+
+
 class MappingDriver:
     """Online mapping session driver on ``device``."""
 
@@ -99,7 +130,7 @@ class MappingDriver:
         self.global_window = global_window
         self.artifact_dir = artifact_dir
 
-        self._lock = threading.RLock()
+        self._lock = _HandoffLock()
         self._timers: list[threading.Thread] = []
         self._stop = threading.Event()
         self._scan_count = 0
@@ -117,7 +148,7 @@ class MappingDriver:
         )
 
         # Async intake: scans enqueue and a worker drains them, integrating
-        # up to burst_batch queued scans per lock acquisition. Under
+        # up to burst_batch queued scans per burst (the lock per scan). Under
         # overload the OLDEST scans drop, like the reference node's
         # keep-last subscription.
         self.async_intake = async_intake
@@ -210,13 +241,19 @@ class MappingDriver:
                     self._qcond.notify_all()
 
     def _integrate_burst(self, items) -> int:
-        """Integrate scans under one lock acquisition, one after the other,
-        as ``FastDEM.integrate_sequence`` does (explicit and provider-posed
-        scans may mix); the number integrated."""
-        with self._lock:
-            n = sum(self.mapper.integrate(c, tbs, twb) for c, tbs, twb in items)
-            if n:
-                self._count(n)
+        """Integrate scans one after the other, as
+        ``FastDEM.integrate_sequence`` does (explicit and provider-posed
+        scans may mix); the number integrated. The lock is taken per scan
+        and handed to the threads waiting for it between scans, so a timer
+        tick sees the map between two scans of a burst, as it does under
+        sync intake."""
+        n = 0
+        for c, tbs, twb in items:
+            self._lock.let_waiters_in()
+            with self._lock:
+                if self.mapper.integrate(c, tbs, twb):
+                    n += 1
+                    self._count(1)
         return n
 
     def drain(self, timeout: float = 30.0) -> bool:

@@ -20,7 +20,7 @@ from typing import Union
 
 import torch
 
-from fastdem_tpu_torch.numerics import fma_f32, sqrt_f32, sum_sq3
+from fastdem_tpu_torch.numerics import fma_f32, sqrt_f32, sum_sq
 
 _MIN_VARIANCE = 1e-6
 _FALLBACK_VARIANCE = 0.01
@@ -62,7 +62,7 @@ class LiDARModel:
         object.__setattr__(self, "angular_noise", abs(self.angular_noise))
 
     def _variances(self, xyz: torch.Tensor):
-        dist_sq = sum_sq3(xyz)
+        dist_sq = sum_sq(xyz)
         dist = sqrt_f32(dist_sq)
         var_radial = max(self.range_noise**2, _MIN_VARIANCE)
         var_lateral = torch.clamp_min((dist * self.angular_noise) ** 2, _MIN_VARIANCE)

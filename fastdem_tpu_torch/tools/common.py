@@ -1,5 +1,5 @@
-"""What the node and the replay tool share: the config options and the
-scan sources."""
+"""What the tools share: the config options, the scan sources and the
+synthetic site of the batch DEM."""
 
 from __future__ import annotations
 
@@ -20,6 +20,34 @@ def add_config_args(ap) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device to map on (default: cuda; there is no "
                          "fallback when it is absent)")
+
+
+def site_terrain(x, y):
+    """Ground height (m) of the synthetic site at world x, y."""
+    return 1.5 * np.sin(x / 9.0) * np.cos(y / 13.0) + 0.4 * np.sin(x / 2.3 + y / 3.1)
+
+
+def synthetic_site(num_points=500_000, size=100.0, seed=0, outliers=0.005,
+                   floating=0.05):
+    """A site's point-cloud map for the batch DEM: ``num_points`` points over
+    a ``size`` x ``size`` m terrain (noise sigma 2 cm), of which a share
+    ``floating`` hang 3-8 m above the ground (canopy, wires) and a share
+    ``outliers`` are gross outliers, the points pushed 10x out from the
+    centre; in random order, with intensity and a height-coded colour.
+    Returns (xyz f32[N, 3], intensity f32[N], color u8[N, 3])."""
+    rng = np.random.default_rng(seed)
+    n_out = int(round(num_points * outliers))
+    n_float = int(round(num_points * floating))
+    xy = rng.uniform(-size / 2, size / 2, (num_points, 2))
+    z = site_terrain(xy[:, 0], xy[:, 1]) + rng.normal(0.0, 0.02, num_points)
+    z[:n_float] += rng.uniform(3.0, 8.0, n_float)
+    xyz = np.column_stack([xy, z])
+    xyz[n_float:n_float + n_out] *= 10.0
+    xyz = xyz[rng.permutation(num_points)].astype(np.float32)
+    intensity = rng.uniform(0.0, 255.0, num_points).astype(np.float32)
+    level = np.clip((xyz[:, 2] + 2.0) * 40.0, 0, 255).astype(np.uint8)
+    color = np.stack([level, 255 - level, np.full_like(level, 96)], axis=1)
+    return xyz, intensity, color
 
 
 def load_node_config(args):

@@ -15,8 +15,10 @@ wrappers' input checks, small sessions (flagship,
 windowed GLOBAL with Kalman and P^2) on the card against the same sessions
 on the CPU, and the post-processing chain and the sampled raycast on the
 card against the CPU; batched replay against the integrate loop bit for
-bit, the node's driver with async intake against its sync intake, and
-``stage()``'s pinned copy.
+bit, the node's driver with async intake against its sync intake,
+``stage()``'s pinned copy, and ``integrate_sequence`` with the poses as a
+list of CUDA tensors; the grid kNN and radius search against the brute
+tile and the CPU, and ``build_dem`` on the card against the CPU.
 """
 
 import numpy as np
@@ -455,3 +457,75 @@ def test_stage_keeps_its_pinned_source(cuda):
     np.testing.assert_array_equal(staged.channels["intensity"].cpu().numpy(), inten)
     assert bool(staged.mask.all()) and staged.valid_count == 50000
     assert pc.stage(staged, cuda) is staged
+
+
+def test_integrate_sequence_takes_cuda_tensor_lists(cuda):
+    """Poses given as a list of CUDA tensors (and T_bs as one) map exactly
+    as the numpy call."""
+    xyz, poses = replay_scans(4)
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[2, 3] = 1.0
+    clouds = [fd.cloud.from_numpy(x, device=cuda) for x in xyz]
+    ref = flagship_on(cuda)
+    assert ref.integrate_sequence(clouds, T_bs, np.stack(poses)) == 4
+    got = flagship_on(cuda)
+    assert got.integrate_sequence(clouds, torch.as_tensor(T_bs, device=cuda),
+                                  [torch.as_tensor(T, device=cuda) for T in poses]) == 4
+    for name, r in ref.state.layers.items():
+        assert torch.equal(got.state.layers[name].view(torch.int32), r.view(torch.int32)), name
+
+
+def dem_site(n):
+    from fastdem_tpu_torch.tools.common import synthetic_site
+
+    return synthetic_site(n, size=30.0, seed=3)
+
+
+def test_grid_knn_equals_brute_on_card(cuda):
+    """The grid kNN with its certificate and fallback on the card: equal to
+    the brute tile on the card, and to the grid on the CPU, bit for bit."""
+    from fastdem_tpu_torch.cloud import search
+
+    xyz, _, _ = dem_site(40000)
+    mask = np.ones(len(xyz), bool)
+    mask[::97] = False
+    gi, gd = search.knn_grid(xyz, mask, 12, device=cuda)
+    assert 0 < search.last_grid_stats["fallback"] < 0.2 * len(xyz)
+    bi, bd = search.knn_brute(xyz, mask, 12, device=cuda)
+    m = torch.as_tensor(mask, device=cuda)
+    assert torch.equal(gd[m].view(torch.int32), bd[m].view(torch.int32))
+    assert torch.equal(gi[m], bi[m])
+    ci, cd = search.knn_grid(xyz, mask, 12, device="cpu")
+    assert torch.equal(gd.cpu().view(torch.int32), cd.view(torch.int32))
+    assert torch.equal(gi.cpu(), ci)
+    ri, rd, rc = search.radius_search_grid(xyz, mask, 0.3, 16, device=cuda)
+    ci, cd, cc = search.radius_search_grid(xyz, mask, 0.3, 16, device="cpu")
+    assert torch.equal(rc.cpu(), cc) and torch.equal(rd.cpu().view(torch.int32),
+                                                     cd.view(torch.int32))
+
+
+def test_build_dem_on_card_matches_cpu(cuda):
+    """build_dem on the card against the CPU: the same kept points, NaN
+    sets and counts, min / max exact, the elevation within 2e-6 (the sums
+    of mean / variance add in atomics' order on the card: rtol 1e-5)."""
+    from fastdem_tpu_torch.cloud import filters
+    from fastdem_tpu_torch.mapping import batch
+
+    xyz, inten, col = dem_site(40000)
+    out = {}
+    for dev in ("cpu", cuda):
+        c = fd.cloud.from_numpy(xyz, intensity=inten, color=col, device=dev)
+        sor = filters.statistical_outlier_removal(c, 20, 1.0)
+        out[str(dev)] = (sor.mask.cpu(), batch.build_dem(c, device=dev))
+    (m_cpu, (g_cpu, s_cpu)), (m_gpu, (g_gpu, s_gpu)) = out["cpu"], out[str(cuda)]
+    assert torch.equal(m_cpu, m_gpu) and g_cpu == g_gpu
+    for name, ref in s_cpu.layers.items():
+        got = s_gpu.layers[name].cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(ref)), name
+        if name in ("elevation_min", "elevation_max", "n_points", "intensity", "color"):
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), name
+        elif name == "elevation":
+            assert float((got - ref).abs().nan_to_num().max()) <= 2e-6
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-9, equal_nan=True)
+    assert float(torch.isfinite(s_gpu.layers["elevation"]).float().mean()) > 0.99

@@ -266,18 +266,17 @@ def test_unported_configurations_raise():
             setattr(obj, attr[-1], value)
         return c
 
-    raising = [
-        # More than 2^19 cells unwindowed: the reference switches rasterizer.
+    # More than 2^19 cells unwindowed, or a window above 2^19 cells (a 40 m
+    # range filter at 0.1 m): the reference switches to its packed
+    # rasterizer there; the port builds the rows step at any size.
+    large = [
         (ft.GridGeometry.from_length(80.0, 80.0, 0.1),
-         cfg_with(mapping__mode=ft.MappingMode.GLOBAL), "section 3"),
-        # A window above 2^19 cells (a 40 m range filter at 0.1 m) does too.
+         cfg_with(mapping__mode=ft.MappingMode.GLOBAL)),
         (ft.GridGeometry.from_length(200.0, 200.0, 0.1),
-         cfg_with(mapping__mode=ft.MappingMode.GLOBAL, point_filter__range_max=40.0),
-         "section 3"),
+         cfg_with(mapping__mode=ft.MappingMode.GLOBAL, point_filter__range_max=40.0)),
     ]
-    for g, c, where in raising:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {where}"):
-            ft.build_integrate(g, c, device="cpu")
+    for g, c in large:
+        assert callable(ft.build_integrate(g, c, device="cpu"))
 
     # What earlier raised now builds and integrates one scan: P^2, the
     # windowed update (a 2 m range filter on a 60 m GLOBAL map), the
@@ -301,6 +300,32 @@ def test_unported_configurations_raise():
         assert (m.state.layers["n_points"] > 0).sum() > 50
         assert torch.isfinite(m.state.layers["raycasting"]).sum() > 50
         assert (m.last_aux.oow_points is not None) == windowed
+
+
+def test_integrate_sequence_takes_lists_of_tensors(rng):
+    """Transforms given as lists (or tuples) of tensors, one per cloud --
+    on any device, tracked by autograd or not -- map exactly as the same
+    transforms given as numpy arrays. (``np.asarray`` of such a list raises
+    for CUDA tensors and for tensors that require grad; the card's case is
+    ``test_torch_cuda.py::test_integrate_sequence_takes_cuda_tensor_lists``.)"""
+    clouds = [small_cloud(rng, timestamp_ns=k) for k in range(3)]
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[2, 3] = 0.3
+    poses = []
+    for k in range(3):
+        T = np.eye(4, dtype=np.float32)
+        T[0, 3] = 0.2 * k
+        poses.append(T)
+    _, ref = small_mapper()
+    assert ref.integrate_sequence(clouds, T_bs, np.stack(poses)) == 3
+    for tbs, twb in ((torch.tensor(T_bs), [torch.tensor(T) for T in poses]),
+                     ([torch.tensor(T_bs)] * 3, tuple(torch.tensor(T) for T in poses)),
+                     (torch.tensor(T_bs), [torch.tensor(T, requires_grad=True) for T in poses])):
+        _, m = small_mapper()
+        assert m.integrate_sequence(clouds, tbs, twb) == 3
+        for k, v in m.state.layers.items():
+            np.testing.assert_array_equal(v.numpy().view(np.int32),
+                                          ref.state.layers[k].numpy().view(np.int32), err_msg=k)
 
 
 def test_wrong_package_config_and_missing_cuda():

@@ -158,19 +158,27 @@ def test_rasterize_all_masked():
 
 
 def test_voxel_count_fallback_and_window_raise(rng):
-    """Beyond 2^23 row-table entries the reference counts voxels another way;
-    the port raises instead of computing something else. A window rebases
-    the table: its observations are the full map's, cut to the window."""
-    gt = GeomT(rows=500, cols=500, resolution=0.1)
-    xyz = torch.zeros((8, 3))
-    mask = torch.ones(8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ras_t.rasterize_scatter_rows(
-            gt, torch.zeros(2), xyz, mask, torch.ones(8), with_voxel_count=True
-        )
-    # Without the voxel count the large table is fine.
-    obs = ras_t.rasterize_scatter_rows(gt, torch.zeros(2), xyz, mask, torch.ones(8))
-    assert obs.touched.sum() == 1
+    """Beyond 2^23 row-table entries the voxel count comes from one
+    representative point per z-voxel, counted into its cell (the
+    reference's ``voxel_unique_mask`` fallback): equal to JAX's bit for
+    bit. A window rebases the table: its observations are the full map's,
+    cut to the window."""
+    gt, gj = GeomT(rows=500, cols=500, resolution=0.1), GeomJ(rows=500, cols=500, resolution=0.1)
+    assert (gt.num_cells + 1) * (3 + 32) > (1 << 23)
+    n = 20000
+    xyz = np.column_stack([rng.uniform(-4, 4, n), rng.uniform(-4, 4, n),
+                           rng.normal(0, 0.4, n)]).astype(np.float32)
+    xyz[::5, 2] = np.round(xyz[::5, 2], 1)  # z on voxel boundaries
+    mask = rng.random(n) > 0.05
+    pos = np.array([0.37, -0.21], np.float32)
+    ref = jax.jit(lambda x, m: ras_j.rasterize_scatter_rows(
+        gj, jnp.asarray(pos), x, m, jnp.ones(n, jnp.float32), with_voxel_count=True))(
+        jnp.asarray(xyz), jnp.asarray(mask))
+    got = ras_t.rasterize_scatter_rows(gt, torch.tensor(pos), torch.tensor(xyz),
+                                       torch.tensor(mask), torch.ones(n), with_voxel_count=True)
+    assert int((got.voxel_count > 1).sum()) > 1000
+    for name in ("voxel_count", "touched", "min_z", "max_z"):
+        assert_bits_equal(getattr(ref, name), getattr(got, name), name)
 
     g = GeomT.from_length(8.0, 6.0, 0.1)
     n = 3000
@@ -192,3 +200,35 @@ def test_voxel_count_fallback_and_window_raise(rng):
     for name in ("touched", "voxel_count", "min_z", "max_z"):
         assert_bits_equal(getattr(full, name)[r0:r0 + wr, c0:c0 + wc],
                           getattr(win, name), name)
+
+
+def test_rows_at_2_20_cells_match_jax(rng):
+    """Rows mode on a 1024 x 1024 map (2^20 cells, where the reference's
+    pipeline would switch to its packed rasterizer): equal to JAX's
+    ``rasterize_scatter_rows`` called directly, bit for bit on every
+    layer, the voxel count through its fallback included."""
+    gt, gj = GeomT(rows=1024, cols=1024, resolution=0.1), GeomJ(rows=1024, cols=1024, resolution=0.1)
+    n = 30000
+    xyz = np.column_stack([rng.uniform(-50, 50, n), rng.uniform(-50, 50, n),
+                           rng.normal(0, 0.5, n)]).astype(np.float32)
+    xyz[:5000, :2] = rng.uniform(-3, 3, (5000, 2))  # a dense patch: several points a cell
+    mask = np.isfinite(xyz).all(axis=1)
+    z_var = rng.uniform(1e-4, 1e-2, n).astype(np.float32)
+    intensity = rng.uniform(0, 100, n).astype(np.float32)
+    color = rng.integers(0, 256, (n, 3)).astype(np.uint8)
+    from fastdem_tpu.utils.colors import pack_rgb as pack_j
+    from fastdem_tpu_torch.utils.colors import pack_rgb as pack_t
+
+    pos = np.array([0.05, 0.15], np.float32)
+    ref = jax.jit(lambda x, m, v, i, c: ras_j.rasterize_scatter_rows(
+        gj, jnp.asarray(pos), x, m, v, intensity=i, color_packed=c, with_voxel_count=True))(
+        jnp.asarray(xyz), jnp.asarray(mask), jnp.asarray(z_var), jnp.asarray(intensity),
+        pack_j(jnp.asarray(color)))
+    got = ras_t.rasterize_scatter_rows(
+        gt, torch.tensor(pos), torch.tensor(xyz), torch.tensor(mask), torch.tensor(z_var),
+        intensity=torch.tensor(intensity), color_packed=pack_t(torch.tensor(color)),
+        with_voxel_count=True)
+    assert int(got.touched.sum()) > 20000
+    for name in ("touched", "min_z", "max_z", "min_z_var", "max_intensity", "color",
+                 "voxel_count"):
+        assert_bits_equal(getattr(ref, name), getattr(got, name), name)

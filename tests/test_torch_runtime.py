@@ -384,6 +384,50 @@ def test_mixed_scan_sizes_burst_equals_sync():
                                       ref.numpy().view(np.int32), err_msg=name)
 
 
+def test_tick_takes_the_lock_between_the_scans_of_a_burst(port_sync_state):
+    """A burst of 4 scans takes the driver's lock per scan and hands it to
+    a waiting thread between scans: a thread that starts waiting for the
+    lock during the burst's first scan gets it right after that scan, not
+    after the burst; and the map is still the sync intake's, bit for bit.
+    Synchronised by events and the lock's own waiter count, not sleeps."""
+    in_scan, seen = threading.Event(), []
+
+    with make_driver("port", async_intake=True, burst_batch=4) as d:
+        integrate = d.mapper.integrate
+
+        def first_scan_waits_for_a_reader(*args):
+            ok = integrate(*args)
+            if not in_scan.is_set():
+                in_scan.set()
+                with d._lock._cond:  # the reader is queued on the lock
+                    assert d._lock._cond.wait_for(lambda: d._lock.waiting > 0, 60.0)
+            return ok
+
+        def tick():
+            assert in_scan.wait(timeout=60.0)
+            with d._lock:
+                seen.append(d.scan_count)
+
+        d.mapper.integrate = first_scan_waits_for_a_reader
+        ticker = threading.Thread(target=tick)
+        ticker.start()
+        scans = driver_scans()
+        with d._qcond:  # the burst's four scans queue before the worker wakes
+            for xyz, _, t in scans[:4]:
+                assert d.on_scan(pc_t.from_numpy(xyz, frame_id="lidar", timestamp_ns=t,
+                                                 device="cpu"))
+        for xyz, _, t in scans[4:]:
+            assert d.on_scan(pc_t.from_numpy(xyz, frame_id="lidar", timestamp_ns=t,
+                                             device="cpu"))
+        assert d.drain(timeout=120.0)
+        ticker.join(timeout=60.0)
+        assert seen == [1]
+        assert (d.scan_count, d.dropped_scans, d.intake_errors) == (N_SCANS, 0, 0)
+        for name, ref in port_sync_state.layers.items():
+            np.testing.assert_array_equal(d.mapper.state.layers[name].numpy().view(np.int32),
+                                          ref.numpy().view(np.int32), err_msg=name)
+
+
 def test_drivers_map_equals_jax(jax_driver_run, port_sync_state):
     layers, position, _ = jax_driver_run
     np.testing.assert_array_equal(position, port_sync_state.position.numpy())

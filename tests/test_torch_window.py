@@ -242,3 +242,106 @@ def test_windowed_session_matches_jax(est, mode):
     np.testing.assert_array_equal(np.asarray(sj.position), st.position.numpy())
     layers_agree(sj.layers, st)
     assert (st.layers["n_points"] > 0).sum() > 3000
+
+
+def _rows_vs_packed_scans(rng, k_scans=3, n=10000):
+    """Sensor-frame ring scans over a terrain, with near-ties in z
+    (``test_torch_replay.near_ties``): point pairs 4 um apart in z, the
+    higher one at the lower index."""
+    from test_torch_replay import near_ties
+
+    out = []
+    for k in range(k_scans):
+        ang = rng.uniform(0, 2 * np.pi, n)
+        rad = rng.uniform(0.5, 8.0, n)
+        x, y = rad * np.cos(ang), rad * np.sin(ang)
+        z = 0.3 * np.sin(0.5 * x) - 1.0 + rng.normal(0, 0.02, n)
+        T = np.eye(4, dtype=np.float32)
+        T[0, 3] = 0.5 * k
+        out.append((near_ties(np.column_stack([x, y, z]).astype(np.float32)), T))
+    return out
+
+
+def test_rows_above_2_19_cells_against_jax_packed():
+    """The smallest square map above 2^19 cells (725 x 725 at 0.1 m,
+    GLOBAL, no window, raycast off): the port runs rows mode, where JAX's
+    pipeline switches to ``rasterize_scatter_packed``.
+
+    What differs is min_z. Packed mode takes it from the argmin point of
+    the quantized (z << idx_bits | index) key, so among z within one
+    quantum (scan z-range / 2^(31 - idx_bits), ~40 um here) the lowest
+    index wins; rows mode reads the exact min from its own lane. Measured
+    on these scans (20,000 points each, every second point a near-tie 4 um
+    above its neighbour, 10,180 mapped cells): ``elevation_min`` differs
+    on 22.7% of the mapped cells and ``elevation``, ``_sample_mean`` and
+    the bounds (which follow min_z through the estimator) on 28.0%, by at
+    most 4.05e-6 m (8.64e-6 for the bounds); ``variance`` and
+    ``_sample_m2`` on 10.2%, by at most 8.8e-7. ``obstacle`` (max_z where
+    max_z > min_z) is set on 864 more cells in the port (8.5%): in a cell
+    holding one near-tie pair, packed mode's min_z is the upper point,
+    equal to max_z. ``n_points``, ``elevation_max``, ``_kalman_p`` and
+    every other NaN set are equal, and the obstacle values equal where
+    both are set.
+    """
+    rng = np.random.default_rng(4)
+    gj = fj.GridGeometry.from_length(72.5, 72.5, 0.1)
+    gt = ft.GridGeometry.from_length(72.5, 72.5, 0.1)
+    assert gt.num_cells == 525625 > (1 << 19)
+    mj = fj.FastDEM(gj, config(fj, raycast=False, range_max=1e9))
+    mt = ft.FastDEM(gt, config(ft, raycast=False, range_max=1e9), device="cpu")
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[2, 3] = 1.0
+    from fastdem_tpu.cloud import pointcloud as pc_j
+
+    for xyz, T in _rows_vs_packed_scans(rng):
+        assert mj.integrate(pc_j.from_numpy(xyz, frame_id="lidar"), T_bs, T)
+        assert mt.integrate(from_numpy(xyz, frame_id="lidar", device="cpu"), T_bs, T)
+    assert mt.last_aux.oow_points is None  # no window
+    mapped = np.isfinite(np.asarray(mj.state.layers["elevation"]))
+    assert mapped.sum() > 8000
+    for name, ref in mj.state.layers.items():
+        a, b = np.asarray(ref), mt.state.layers[name].numpy()
+        if name == "obstacle":
+            both = np.isfinite(a) & np.isfinite(b)
+            assert not (np.isfinite(a) & ~both).any()
+            np.testing.assert_array_equal(b[both], a[both])
+            assert 0.02 < (np.isfinite(b) & ~both).sum() / mapped.sum() < 0.15
+            continue
+        np.testing.assert_array_equal(np.isnan(b), np.isnan(a), name)
+        diff = (a.view(np.int32) != b.view(np.int32)) & np.isfinite(a)
+        if name in ("n_points", "elevation_max", "_kalman_p"):
+            assert not diff.any(), name
+            continue
+        err = np.abs(a - b)[np.isfinite(a)].max()
+        assert err <= (1e-5 if name.endswith("bound") else 5e-6), (name, err)
+        assert diff[mapped].mean() < 0.35, name
+    share = lambda n: ((np.asarray(mj.state.layers[n]).view(np.int32)  # noqa: E731
+                        != mt.state.layers[n].numpy().view(np.int32)) & mapped).sum() / mapped.sum()
+    assert 0.1 < share("elevation_min") < share("elevation") < 0.35
+
+
+def test_sampled_raycast_on_a_large_global_map():
+    """The sampled raycast turns the update window off, so on a GLOBAL map
+    above 2^19 cells it rasterizes the whole map in rows mode: it returns
+    a map (it raised before), with JAX's ``n_points``."""
+    rng = np.random.default_rng(8)
+    maps = []
+    for pkg in (fj, ft):
+        cfg = config(pkg, range_max=8.0)
+        cfg.raycasting.method = "sampled"
+        geom = pkg.GridGeometry.from_length(72.5, 72.5, 0.1)
+        kw = {} if pkg is fj else {"device": "cpu"}
+        maps.append(pkg.FastDEM(geom, cfg, **kw))
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[2, 3] = 1.0
+    from fastdem_tpu.cloud import pointcloud as pc_j
+
+    for xyz, T in _rows_vs_packed_scans(rng, k_scans=2, n=1500):
+        assert maps[0].integrate(pc_j.from_numpy(xyz, frame_id="lidar"), T_bs, T)
+        assert maps[1].integrate(from_numpy(xyz, frame_id="lidar", device="cpu"), T_bs, T)
+    got = maps[1].state.layers
+    assert maps[1].last_aux.oow_points is None
+    np.testing.assert_array_equal(got["n_points"].numpy(),
+                                  np.asarray(maps[0].state.layers["n_points"]))
+    assert torch.isfinite(got["elevation"]).sum() > 1000
+    assert torch.isfinite(got["raycasting"]).sum() > 1000
