@@ -3,10 +3,15 @@
 
 PCD v0.7 load / save with x/y/z plus intensity / rgb / normal / time /
 ring / label channels, KITTI velodyne ``.bin`` (x, y, z, intensity
-float32), and TUM / KITTI trajectory files. Host-side numpy: a loaded
-cloud is built on ``device`` (the card unless the caller names the CPU),
-and a saved cloud is read from its device once. The reference package's
-C++ parser (``fastdem_tpu/native``) is not ported.
+float32), and TUM / KITTI trajectory files. Host-side: a loaded cloud is
+built on ``device`` (the card unless the caller names the CPU), and a
+saved cloud is read from its device once.
+
+With ``use_native`` (the default) binary and ascii PCD and KITTI files are
+parsed, and binary PCD written, by the port's C++ library
+(``fastdem_tpu_torch.native``); where it cannot be built, or does not parse
+a file, the numpy reader and writer below run (the library warns when it is
+unavailable). Both give the same bits.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ DEFAULT_VIEWPOINT = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0)  # tx ty tz qw qx qy qz
 def load_pcd(
     path: str,
     capacity: Optional[int] = None,
+    use_native: bool = True,
     return_meta: bool = False,
     *,
     device="cuda",
@@ -44,6 +50,16 @@ def load_pcd(
     With ``return_meta`` returns ``(cloud, meta)``, where meta carries the
     file's VIEWPOINT (tx ty tz qw qx qy qz).
     """
+    if use_native:
+        from fastdem_tpu_torch import native
+
+        out = native.load_pcd(path)
+        if out is not None:
+            xyz, channels, viewpoint = out
+            cloud = from_numpy(xyz, capacity=capacity, device=device, **channels)
+            if return_meta:
+                return cloud, {"viewpoint": viewpoint}
+            return cloud
     with open(path, "rb") as f:
         header: Dict[str, List[str]] = {}
         data_mode = None
@@ -150,6 +166,7 @@ def save_pcd(
     path: str,
     cloud: PointCloud,
     binary: bool = True,
+    use_native: bool = True,
     viewpoint=None,
     ascii_precision: int = 8,
 ) -> bool:
@@ -162,6 +179,14 @@ def save_pcd(
     """
     xyz_all, keep, chans = host_arrays(cloud)
     xyz = np.asarray(xyz_all, dtype=np.float32)[keep]
+    if binary and use_native:
+        from fastdem_tpu_torch import native
+
+        if native.available():
+            pick = {name: np.asarray(chans[name])[keep] if name in chans else None
+                    for name in ("intensity", "color", "normal")}
+            return native.save_pcd(path, xyz, pick["intensity"], pick["color"],
+                                   normal=pick["normal"], viewpoint=viewpoint)
     n = xyz.shape[0]
     fields = ["x", "y", "z"]
     sizes = ["4", "4", "4"]
@@ -232,9 +257,16 @@ def save_pcd(
 
 
 def load_kitti_bin(
-    path: str, capacity: Optional[int] = None, *, device="cuda"
+    path: str, capacity: Optional[int] = None, use_native: bool = True, *, device="cuda"
 ) -> PointCloud:
     """KITTI velodyne .bin: N x (x, y, z, intensity) float32."""
+    if use_native:
+        from fastdem_tpu_torch import native
+
+        out = native.load_kitti(path)
+        if out is not None:
+            xyz, channels = out
+            return from_numpy(xyz, capacity=capacity, device=device, **channels)
     raw = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
     return from_numpy(
         raw[:, :3], capacity=capacity, device=device, intensity=raw[:, 3].copy()

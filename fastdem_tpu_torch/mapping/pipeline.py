@@ -836,6 +836,17 @@ class FastDEM:
         the scans' sizes, and ``last_aux`` and the observation callbacks
         follow every scan.
 
+        This is JAX's ``integrate`` loop, not JAX's ``integrate_sequence``,
+        and deliberately so. The reference's batched call pads every cloud
+        of a call to one ``bucket_capacity`` (so a small scan beside a large
+        one gets the large one's z quantum in the rasterizer), uses a
+        channel only when every cloud carries it, and skips the margin
+        guard, ``last_aux`` and the callbacks. The port does none of that:
+        on mixed-size or mixed-channel calls its map equals JAX's loop
+        (``tests/test_torch_replay.py::
+        test_facade_sequence_mixed_sizes_against_jax_loop``) and differs
+        from JAX's ``integrate_sequence``.
+
         Transforms follow ``integrate``'s rule: explicit mode needs BOTH
         ``T_base_sensor`` (one 4x4 or one per cloud) and ``T_world_base``
         (one per cloud); otherwise the providers are queried per cloud and

@@ -51,6 +51,16 @@ def sum_sq(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return acc
 
 
+def dot_fma(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """sum(a * b) along ``dim`` (broadcasting) as the reference's compiled
+    dots and reductions accumulate it: a0 * b0, then one FMA per further
+    term."""
+    acc = a.select(dim, 0) * b.select(dim, 0)
+    for i in range(1, a.shape[dim]):
+        acc = fma_f32(a.select(dim, i), b.select(dim, i), acc)
+    return acc
+
+
 def div_f32(x: torch.Tensor, c: float) -> torch.Tensor:
     """x / c with one float32 rounding on every device. ``c`` goes in as a
     0-dim tensor on x's device: CUDA divides by a Python scalar through its

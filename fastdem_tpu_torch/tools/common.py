@@ -1,5 +1,5 @@
-"""What the tools share: the config options, the scan sources and the
-synthetic site of the batch DEM."""
+"""What the tools share: the config options, the scan sources, the
+synthetic site of the batch DEM and the registration benchmark's scene."""
 
 from __future__ import annotations
 
@@ -111,3 +111,25 @@ def scan_source(args):
     if args.scans:
         return file_scans(args.scans, args.trajectory)
     raise SystemExit("need --synthetic N or --scans DIR")
+
+
+def make_cloud_np(n, rng, spread=10.0):
+    """The registration benchmark's scene (the reference repo's
+    ``tools/bench_cloud_ops.py``): ``n`` points uniform over a ``spread``
+    half-width cube, flattened to a gently rolling surface (z = 0.1 sin x
+    plus 2 cm noise). f32[n, 3]."""
+    xyz = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
+    xyz[:, 2] = (0.1 * np.sin(xyz[:, 0]) + 0.02 * rng.normal(size=n)).astype(np.float32)
+    return xyz
+
+
+def registration_pair(n, seed=0):
+    """(source, target, T_true) of the registration benchmark: target =
+    T_true * source with T_true = from_rpy(0.01, -0.02, 0.05, t=(0.3, -0.2,
+    0.1)), so aligning source onto target recovers T_true. Host arrays."""
+    from fastdem_tpu_torch.cloud.transform import from_rpy
+
+    src = make_cloud_np(n, np.random.default_rng(seed))
+    T_true = from_rpy(0.01, -0.02, 0.05, t=(0.3, -0.2, 0.1), device="cpu").numpy()
+    tgt = ((T_true[:3, :3] @ src.T).T + T_true[:3, 3]).astype(np.float32)
+    return src, tgt, T_true

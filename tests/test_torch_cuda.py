@@ -18,7 +18,9 @@ card against the CPU; batched replay against the integrate loop bit for
 bit, the node's driver with async intake against its sync intake,
 ``stage()``'s pinned copy, and ``integrate_sequence`` with the poses as a
 list of CUDA tensors; the grid kNN and radius search against the brute
-tile and the CPU, and ``build_dem`` on the card against the CPU.
+tile and the CPU, and ``build_dem`` on the card against the CPU; normals,
+segmentation and registration on the card against the CPU, and the PRNG's
+draws on the card equal to the CPU's.
 """
 
 import numpy as np
@@ -529,3 +531,55 @@ def test_build_dem_on_card_matches_cpu(cuda):
         else:
             torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-9, equal_nan=True)
     assert float(torch.isfinite(s_gpu.layers["elevation"]).float().mean()) > 0.99
+
+
+def test_cloud_library_on_card_matches_cpu(cuda):
+    """Normals at 10K points, segment_ground and euclidean_cluster on the
+    card against the CPU: normals within 1e-6 with the same zero set, the
+    ground mask and the cluster labels exactly."""
+    from fastdem_tpu_torch.cloud import normals, segmentation
+    from fastdem_tpu_torch.tools.common import make_cloud_np
+
+    xyz = make_cloud_np(10_000, np.random.default_rng(0))
+    c_d = fd.cloud.from_numpy(xyz, device=cuda)
+    c_h = fd.cloud.from_numpy(xyz, device="cpu")
+    for method in ("brute", "grid"):
+        n_d = normals.estimate_normals(c_d, k=10, method=method).channels["normal"].cpu()
+        n_h = normals.estimate_normals(c_h, k=10, method=method).channels["normal"]
+        assert torch.equal((n_d == 0).all(1), (n_h == 0).all(1))
+        assert float((n_d - n_h).abs().max()) <= 1e-6
+    assert torch.equal(segmentation.segment_ground(c_d).cpu(), segmentation.segment_ground(c_h))
+    assert torch.equal(segmentation.euclidean_cluster(c_d, tolerance=0.3).cpu(),
+                       segmentation.euclidean_cluster(c_h, tolerance=0.3))
+    assert torch.equal(segmentation.segment_plane(c_d, 0.05).inliers.cpu(),
+                       segmentation.segment_plane(c_h, 0.05).inliers)
+
+
+@pytest.mark.parametrize("method", ["icp", "gicp"])
+def test_align_on_card_matches_cpu(cuda, method):
+    """ICP and GICP at 2K points on the card against the CPU, at the
+    tolerances the CPU tests hold the port to JAX with."""
+    from fastdem_tpu_torch.cloud import registration
+    from fastdem_tpu_torch.tools.common import registration_pair
+
+    src, tgt, T_true = registration_pair(2000, seed=1)
+    r = {dev: registration.align(fd.cloud.from_numpy(src, device=dev),
+                                 fd.cloud.from_numpy(tgt, device=dev), method=method,
+                                 optimizer="lm")
+         for dev in (cuda, "cpu")}
+    a, b = r[cuda], r["cpu"]
+    np.testing.assert_allclose(a.T, b.T, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(a.error, b.error, rtol=1e-4, atol=1e-7)
+    assert a.converged == b.converged and abs(a.iterations - b.iterations) <= 1
+    assert a.num_correspondences == b.num_correspondences
+    assert np.linalg.norm(a.T[:3, 3] - T_true[:3, 3]) < 0.05
+
+
+def test_prng_draws_on_card_equal_cpu(cuda):
+    from fastdem_tpu_torch.utils import prng
+
+    for seed in (0, 7, 2**31 - 1):
+        key = prng.prng_key(seed)
+        a = prng.randint(key, (1000, 3), 0, 2**20, device=cuda).cpu()
+        b = prng.randint(key, (1000, 3), 0, 2**20, device="cpu")
+        assert torch.equal(a, b)

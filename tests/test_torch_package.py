@@ -46,7 +46,9 @@ def test_import_leaves_jax_out():
     modules = port_modules()
     assert {"fastdem_tpu_torch.runtime.driver", "fastdem_tpu_torch.io.npz",
             "fastdem_tpu_torch.tools.fastdem_replay", "fastdem_tpu_torch.presets",
-            "fastdem_tpu_torch.utils.colors"} <= set(modules)
+            "fastdem_tpu_torch.utils.colors", "fastdem_tpu_torch.cloud.normals",
+            "fastdem_tpu_torch.cloud.segmentation", "fastdem_tpu_torch.cloud.registration",
+            "fastdem_tpu_torch.utils.prng", "fastdem_tpu_torch.native"} <= set(modules)
     jax_dir = os.path.join(ROOT, "fastdem_tpu") + os.sep
     code = (
         "import importlib, os, sys; import fastdem_tpu_torch as fd; "
@@ -55,14 +57,28 @@ def test_import_leaves_jax_out():
         "from fastdem_tpu_torch.runtime import MappingDriver; "
         "fd.FastDEM(fd.GridGeometry.from_length(2.0, 2.0, 0.1), fd.Config(), device='cpu'); "
         "MappingDriver(fd.GridGeometry.from_length(2.0, 2.0, 0.1), device='cpu').close(); "
+        "from fastdem_tpu_torch import native; native.available(); "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'fastdem_tpu.')) or m == 'fastdem_tpu'); "
         f"bad += sorted(n for n, m in list(sys.modules.items()) if os.path.abspath(getattr(m, '__file__', None) or '').startswith({jax_dir!r})); "
+        # No shared object (the native scan IO) loaded from the JAX package.
+        f"bad += [l for l in open('/proc/self/maps').read().splitlines() if {jax_dir!r} in l]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_native_sources_are_the_port_copy():
+    """The native library compiles the port's own copy of the C++ sources
+    into the port's build directory, never a path under ``fastdem_tpu/``."""
+    from fastdem_tpu_torch import native
+
+    jax_dir = os.path.join(ROOT, "fastdem_tpu") + os.sep
+    for path in native._SRCS + [native._LIB]:
+        assert os.path.abspath(path).startswith(PACKAGE + os.sep), path
+        assert not os.path.abspath(path).startswith(jax_dir), path
 
 
 def test_no_jax_import_in_sources():
@@ -73,7 +89,9 @@ def test_no_jax_import_in_sources():
     sources.append(os.path.join(ROOT, "chip_smoke.py"))
     assert len(sources) > 10
     for new in ("runtime/driver.py", "runtime/wire.py", "io/pcd.py", "tools/fastdem_node.py",
-                "mapping/pipeline.py", "config.py", "presets.py"):
+                "mapping/pipeline.py", "config.py", "presets.py", "cloud/normals.py",
+                "cloud/segmentation.py", "cloud/registration.py", "utils/prng.py",
+                "native/__init__.py"):
         assert os.path.join(PACKAGE, new) in sources, new
     for path in sources:
         with open(path) as f:
