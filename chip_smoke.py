@@ -15,13 +15,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  times (torch.profiler) at the flagship and GLOBAL shapes,
                  the column and the row kernel apart, beside the bound and
                  its share.
-  4. K4       -- the per-cell lookup against its twin, one and two reads,
-                 at [515, 2048] x 150x150 cells and [962, 2048] x 484x484
-                 cells: bit-identical, same NaN set; then the main path's
-                 form, whose kernel also computes the indices, against its
-                 twin (resample_indices + resample_plain) on the flagship's
-                 whole map and a GLOBAL window with device offsets; device
-                 times of both forms.
+  4. K4       -- the per-cell lookup, whose kernel also computes the
+                 indices, against its twin (resample_indices +
+                 resample_plain), one and two reads, on the flagship's
+                 whole map and a GLOBAL window with device offsets:
+                 bit-identical, same NaN and touched sets; device times.
   5. exact    -- polar_resample with exact_window (K1-exact + K4 one read)
                  against the two-read form (K1 + K4 two reads) on a
                  scattered LiDAR table: bitwise-equal heights and touched.
@@ -128,6 +126,29 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  bit-identical, one K1 and one K4 launch per scan, ms/scan
                  of each.
 
+ 20. sharded  -- the 200 m GLOBAL map of phase 7 on a 2x2 mesh of
+                 1000x1000 blocks on the one card
+                 (parallel.sharding.build_sharded_integrate, the windowed
+                 formulation), 16 scans of 30,000 points: the step and the
+                 16-scan sequence equal the unsharded windowed step bit for
+                 bit on every layer, K1 once per scan (shared by the
+                 blocks) and K4 once per block per scan, no point outside
+                 the window; device events and device ms per scan and
+                 ms/scan (three alternating turns) sharded against
+                 unsharded; the post-processing chain per block with its
+                 halo against the unsharded chain (phase 11's tolerances,
+                 the bitwise share printed); two gloo processes of
+                 tools/multihost_demo on the card, 2 blocks each, fed the
+                 same 16 scans: save_sharded_npz byte for byte equal to
+                 save_npz of the one-process map, and the sharded
+                 checkpoint restored onto 1x4 and 4x1 meshes plus 4 scans
+                 equal to the uninterrupted run; cold start of a flagship
+                 node in a fresh process against an empty program-cache
+                 bundle (enable + warmup) and against the filled one
+                 (no nvcc build), seconds from process start to the first
+                 integrated scan; the scaling report, strong and weak, as an
+                 overhead probe of 4 blocks on one card.
+
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -230,6 +251,11 @@ CLOUD_CROP = 10_000
 CROP_ICP_ITERATIONS = 10
 # The native scan IO (phase 19).
 IO_SCANS = 64
+# The block-sharded GLOBAL map (phase 20): scans before the checkpoint,
+# scans after it, and alternating timing turns.
+SHARD_SCANS = 16
+RESUME_SCANS = 4
+SHARD_TURNS = 3
 
 
 def terrain(x, y):
@@ -548,39 +574,13 @@ def phase_k1(card):
 
 
 def phase_k4(card):
-    """K4 against its plain twin in both forms: the lookup of given indices
-    (one and two reads, flagship and GLOBAL shapes), then the main path's
-    lookup with its index math (the flagship's whole map, a GLOBAL window
-    with device offsets): bit-identical heights, the same touched and NaN
+    """K4 against its plain twin: the main path's lookup with its index
+    math (the flagship's whole map, a GLOBAL window with device offsets),
+    one and two reads: bit-identical heights, the same touched and NaN
     sets; device times."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(43)
     max_err = 0.0
-    for R, A, cells in ((515, 2048, 150), (962, 2048, 484)):
-        field = rng.uniform(-2.0, 0.5, (R, A)).astype(np.float32)
-        field[rng.random((R, A)) < 0.97] = np.inf
-        field[rng.random((R, A)) < 0.001] = np.nan
-        shape = (cells, cells)
-        fld = torch.tensor(field, device=dev)
-        a0 = torch.tensor(rng.integers(0, A, shape).astype(np.int32), device=dev)
-        a1 = torch.tensor(rng.integers(0, A, shape).astype(np.int32), device=dev)
-        r = torch.tensor(rng.integers(0, R, shape).astype(np.int32), device=dev)
-        in_range = torch.tensor(rng.random(shape) < 0.9, device=dev)
-        for second in (None, a1):
-            reads = 1 if second is None else 2
-            h, t = k4.resample_cuda(fld, a0, second, r, in_range)
-            h_ref, t_ref = k4.resample_plain(fld, a0, second, r, in_range)
-            torch.cuda.synchronize()
-            check_same(f"K4 [R={R}, A={A}] {cells}x{cells} cells, {reads} read(s), "
-                       "indices given", (h, t), (h_ref, t_ref))
-            if R == 962 and reads == 1:
-                time_pair(
-                    f"K4 (indices given) time at [{R}, {A}] x {cells}x{cells} cells, "
-                    "1 read, L2-warm field",
-                    lambda: k4.resample_cuda(fld, a0, second, r, in_range),
-                    lambda: k4.resample_plain(fld, a0, second, r, in_range),
-                )
-
     timing = {}
     for label, geom, maxr, pos, so, win in (
         ("flagship", flagship_geom(), 12.81, [0.2, -0.1], [0.31, -0.17, 1.05], None),
@@ -1799,6 +1799,276 @@ def phase_native_io(card, dev="cuda"):
     return launches
 
 
+def shard_stream(n_scans, seed):
+    """The GLOBAL session's scans on the card: (xyz, T_wb) per scan, the
+    mask and T_bs (phase 20)."""
+    scans, T_bs, poses = global_session_scans(n_scans, seed)
+    dev = torch.device("cuda")
+    stream = [(torch.tensor(scans[k], device=dev), torch.tensor(poses[k], device=dev))
+              for k in range(n_scans)]
+    mask = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
+    return stream, mask, torch.tensor(T_bs, device=dev), (scans, T_bs, poses)
+
+
+def assert_bitwise(what, ref, got):
+    """Every layer and the position bit for bit."""
+    bad = [k for k, v in ref.layers.items()
+           if not torch.equal(v.view(torch.int32), got.layers[k].view(torch.int32))]
+    same_pos = torch.equal(ref.position.cpu(), got.position.cpu())
+    print(f"{what}: {len(ref.layers)} layers bit for bit {not bad}, position equal {same_pos}")
+    if bad or not same_pos:
+        raise AssertionError(f"{what}: layers {bad} differ (position equal {same_pos})")
+
+
+def chain_ms_of(run, stream, mask, T_bs, state):
+    """ms/scan of one pass over the stream (CUDA events around it)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for xyz, pose in stream:
+        state, _ = run(state, xyz, mask, T_bs, pose)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / len(stream), state
+
+
+def run_worker_pair(args, timeout):
+    """Two multihost_demo processes on one coordinator (a free port); both
+    must exit 0 within ``timeout``; returns their output."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "fastdem_tpu_torch.tools.multihost_demo", "--pid", str(p),
+         "--nproc", "2", "--coordinator", f"localhost:{port}", *args],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for p in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost_demo exited {p.returncode}:\n{log[-3000:]}")
+    return logs
+
+
+COLD_START_CODE = r"""
+import json, sys, time
+t_import = time.time()
+import numpy as np
+import torch
+import fastdem_tpu_torch as fd
+from fastdem_tpu_torch.ops import cuda_build
+from fastdem_tpu_torch.runtime import aotcache
+bundle, warm = sys.argv[1], sys.argv[2] == "warmup"
+geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1)
+cfg = fd.Config()
+cfg.sensor_model.type = fd.SensorType.LIDAR
+cfg.raycasting.enabled = True
+if warm:
+    aotcache.warmup(geom, cfg, bundle_dir=bundle, capacities=(32768,), device="cuda")
+else:
+    aotcache.enable(bundle)
+rng = np.random.default_rng(0)
+xyz = np.column_stack([rng.uniform(-7, 7, (30000, 2)),
+                       rng.normal(-1.0, 0.02, 30000)]).astype(np.float32)
+T_bs = np.eye(4, dtype=np.float32)
+T_bs[2, 3] = 1.0
+mapper = fd.FastDEM(geom, cfg, device="cuda")
+assert mapper.integrate(fd.cloud.from_numpy(xyz, frame_id="lidar", device="cuda"), T_bs,
+                        np.eye(4, dtype=np.float32))
+torch.cuda.synchronize()
+print(json.dumps({"first_scan_at": time.time(), "imports_from": t_import,
+                  "build_seconds": cuda_build.build_seconds,
+                  "finite": int(torch.isfinite(mapper.state.layers["elevation"]).sum())}))
+"""
+
+
+def phase_sharded(card):
+    """Phase 20: the block-sharded GLOBAL map; returns the K1 and K4
+    launches of its sharded main-path runs (step and sequence)."""
+    import tempfile
+
+    from fastdem_tpu_torch.io.npz import save_npz
+    from fastdem_tpu_torch.io.sharded_ckpt import load_sharded
+    from fastdem_tpu_torch.parallel import sharding as sh
+    from fastdem_tpu_torch.parallel.distributed import scaling_report
+
+    ggeom, cfg = global_geom(), global_config()
+    n_all = SHARD_SCANS + RESUME_SCANS
+    stream, mask, T_bs, host = shard_stream(n_all, seed=23)
+    first, rest = stream[:SHARD_SCANS], stream[SHARD_SCANS:]
+
+    # ---- a. one process, a 2x2 mesh of 1000x1000 blocks on cuda:0 ----
+    step1 = fd.build_integrate(ggeom, cfg, device="cuda")
+    mesh = sh.make_mesh(4, shape=(2, 2), devices=["cuda"])
+    stepN, shard = sh.build_sharded_integrate(ggeom, cfg, mesh)
+    seqN, _ = sh.build_sharded_integrate_sequence(ggeom, cfg, mesh)
+    print(f"phase 20 sharded: mesh {mesh.shape}, blocks "
+          f"{tuple(shard(fd.create_map_state(ggeom, cfg, device='cuda')).blocks[(0, 0)]['elevation'].shape)}, "
+          f"formulation {stepN.formulation} / {seqN.formulation}")
+    if stepN.formulation != "shardmap_windowed" or seqN.formulation != "shardmap_windowed":
+        raise AssertionError("phase 20: the windowed formulation did not engage")
+    s1 = fd.create_map_state(ggeom, cfg, device="cuda")
+    for xyz, pose in first:
+        s1, _ = step1(s1, xyz, mask, T_bs, pose)
+    torch.cuda.synchronize()
+    k1.launches = k4.launches = 0
+    sN = shard(fd.create_map_state(ggeom, cfg, device="cuda"))
+    oow = []
+    for xyz, pose in first:
+        sN, aux = stepN(sN, xyz, mask, T_bs, pose)
+        oow.append(aux.oow_points)
+    torch.cuda.synchronize()
+    l1, l4 = k1.launches, k4.launches
+    n_oow = int(torch.stack(oow).sum())
+    print(f"phase 20 sharded step: {SHARD_SCANS} scans, K1 launches {l1} "
+          f"({l1 / SHARD_SCANS!r}/scan), K4 launches {l4} ({l4 / SHARD_SCANS!r}/scan), "
+          f"points outside the window {n_oow}")
+    if (l1, l4) != (SHARD_SCANS, 4 * SHARD_SCANS) or n_oow:
+        raise AssertionError("phase 20: want K1 once per scan, K4 once per block per scan, "
+                             "no point outside the window")
+    assert_bitwise("phase 20 sharded step == unsharded windowed step", s1, sh.gather_state(sN))
+    k1.launches = k4.launches = 0
+    sS = seqN(shard(fd.create_map_state(ggeom, cfg, device="cuda")),
+              torch.stack([x for x, _ in first]),
+              mask.expand(SHARD_SCANS, -1), T_bs, torch.stack([p for _, p in first]))
+    torch.cuda.synchronize()
+    s1_, s4_ = k1.launches, k4.launches
+    print(f"phase 20 sharded sequence ({SHARD_SCANS} stacked scans): K1 launches {s1_}, "
+          f"K4 launches {s4_}")
+    if (s1_, s4_) != (SHARD_SCANS, 4 * SHARD_SCANS):
+        raise AssertionError("phase 20: the sequence's launches are off")
+    assert_bitwise("phase 20 sharded sequence == unsharded windowed step", s1,
+                   sh.gather_state(sS))
+    del sS
+
+    def events_per_scan(run, state):
+        it = iter(rest)
+        box = [state]
+
+        def one():
+            xyz, pose = next(it)
+            box[0], _ = run(box[0], xyz, mask, T_bs, pose)
+
+        ms, events, _ = device_profile(one, len(rest))
+        return events, ms
+
+    for what, run, state in (("unsharded", step1, s1), ("sharded 2x2", stepN, sN)):
+        events, dev_ms = events_per_scan(run, state)
+        print(f"phase 20 {what}: {events!r} device events per scan, {dev_ms!r} device ms "
+              f"per scan (torch.profiler over {len(rest)} scans) on {card}")
+    times = {"unsharded": [], "sharded 2x2": []}
+    for _ in range(SHARD_TURNS):
+        for what, run, state0 in (("unsharded", step1, fd.create_map_state(ggeom, cfg, device="cuda")),
+                                  ("sharded 2x2", stepN, shard(fd.create_map_state(ggeom, cfg, device="cuda")))):
+            ms, _ = chain_ms_of(run, first, mask, T_bs, state0)
+            times[what].append(ms)
+    for what, ms in times.items():
+        print(f"phase 20 {what}: ms/scan over {SHARD_SCANS} scans, {SHARD_TURNS} turns "
+              f"alternating (CUDA events): {ms!r} on {card}")
+
+    # ---- c. the post-processing chain over the sharded map ----
+    pp = postprocess_config()
+    names = ("elevation", "upper_bound", "lower_bound")
+    t0 = time.perf_counter()
+    ppN = sh.gather_state(sh.sharded_postprocess(ggeom, pp, mesh, sN, median=(3, 5)))
+    torch.cuda.synchronize()
+    t_sh = time.perf_counter() - t0
+    ref = run_chain(ggeom, pp, [s1.layers[k] for k in names])
+    torch.cuda.synchronize()
+    print(f"phase 20 sharded post-processing: halo {sh.postprocess_halo(pp, ggeom.resolution, 3)} "
+          f"cells, {t_sh * 1e3!r} ms wall for the 4 blocks (first call)")
+    compare_chain("phase 20 sharded post-processing vs unsharded", ref, ppN.layers)
+    del ppN, ref
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- b. two gloo processes on the one card, 2 blocks each ----
+        scans_npz = os.path.join(tmp, "scans.npz")
+        scans, T_bs_np, poses = host
+        np.savez(scans_npz, xyz=scans[:SHARD_SCANS], T_bs=T_bs_np,
+                 T_wb=np.stack(poses[:SHARD_SCANS]))
+        mh, ck = os.path.join(tmp, "mh.npz"), os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        logs = run_worker_pair(
+            ["--local-blocks", "2", "--scans-npz", scans_npz,
+             "--map-size", repr(ggeom.rows * ggeom.resolution),
+             "--resolution", repr(ggeom.resolution), "--range", repr(GLOBAL_RANGE),
+             "--out", mh, "--ckpt", ck,
+             "--device", "cuda"], TOOL_TIMEOUT_S)
+        print(f"phase 20 two gloo processes on the card: {time.perf_counter() - t0!r} s wall")
+        for log in logs:
+            print("\n".join(l for l in log.splitlines() if l.startswith("[mh]")))
+        one = os.path.join(tmp, "one.npz")
+        if not save_npz(one, ggeom, sh.gather_state(sN)):
+            raise AssertionError("phase 20: save_npz failed")
+        with open(mh, "rb") as f1, open(one, "rb") as f2:
+            same = f1.read() == f2.read()
+        print(f"phase 20 two-process save_sharded_npz == save_npz of the one-process map, "
+              f"byte for byte: {same} ({os.path.getsize(mh)} bytes)")
+        if not same:
+            raise AssertionError("phase 20: the two-process map differs")
+        # The uninterrupted run, then resumes from the checkpoint on 1x4
+        # and 4x1 meshes.
+        for xyz, pose in rest:
+            s1, _ = step1(s1, xyz, mask, T_bs, pose)
+        for shape in ((1, 4), (4, 1)):
+            m2 = sh.make_mesh(4, shape=shape, devices=["cuda"])
+            _, s3, _ = load_sharded(ck, m2)
+            step3, _ = sh.build_sharded_integrate(ggeom, cfg, m2)
+            for xyz, pose in rest:
+                s3, _ = step3(s3, xyz, mask, T_bs, pose)
+            assert_bitwise(f"phase 20 checkpoint -> {shape} mesh -> {RESUME_SCANS} scans == "
+                           "uninterrupted", s1, sh.gather_state(s3))
+            del s3
+
+        # ---- d. cold start against an empty and a filled bundle ----
+        bundle = os.path.join(tmp, "bundle")
+        starts = {}
+        for what, mode in (("empty bundle, enable + warmup", "warmup"),
+                           ("filled bundle, enable", "enable")):
+            t_spawn = time.time()
+            proc = subprocess.run([sys.executable, "-c", COLD_START_CODE, bundle, mode],
+                                  cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                                  capture_output=True, text=True, timeout=TOOL_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 20 cold start ({what}): {proc.stderr[-3000:]}")
+            rep = json.loads(proc.stdout.strip().splitlines()[-1])
+            starts[mode] = rep
+            print(f"phase 20 cold start, {what}: {rep['first_scan_at'] - t_spawn!r} s from "
+                  f"process start to the first integrated scan "
+                  f"({rep['first_scan_at'] - rep['imports_from']!r} s after the interpreter "
+                  f"came up), cuda_build.build_seconds {rep['build_seconds']}, "
+                  f"{rep['finite']} mapped cells")
+        if set(starts["warmup"]["build_seconds"]) != {"polar_field.cu", "resample.cu"} or \
+                starts["enable"]["build_seconds"]:
+            raise AssertionError("phase 20: the filled bundle did not spare the builds")
+        from fastdem_tpu_torch.runtime import aotcache
+
+        health = aotcache.verify(bundle, canary=True)
+        print(f"phase 20 bundle: {health['entries']} libraries "
+              f"{[e['file'] for e in health['libraries']]}, toolchain drift "
+              f"{health['toolchain_drift']}, canary {health['canary']}")
+
+    # ---- e. the scaling report as an overhead probe (one card) ----
+    for mode, geom in (("strong", ggeom),
+                       ("weak", fd.GridGeometry.from_length(100.0, 100.0, 0.1))):
+        rep = scaling_report(geom, cfg, scans=SHARD_SCANS, points=N_POINTS, mode=mode,
+                             mesh=mesh, device="cuda")
+        print(f"phase 20 scaling_report {mode} on one card, 4 blocks (an overhead probe, "
+              f"not scaling: the blocks share the card): {json.dumps(rep)} on {card}")
+    return l1 + s1_, l4 + s4_
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -1919,6 +2189,11 @@ def main() -> int:
     t0 = time.perf_counter()
     add_launches(*phase_native_io(card))
     print(f"phase 19: {time.perf_counter() - t0!r} s")
+
+    # ---- 20. the block-sharded GLOBAL map, two processes, cold start ----
+    t0 = time.perf_counter()
+    add_launches(*phase_sharded(card))
+    print(f"phase 20: {time.perf_counter() - t0!r} s")
 
     k1_main = k1_ms["flagship"]
     k4_main = k4_ms["global"]

@@ -13,17 +13,14 @@
 //   ray_min[i] = touched[i] ? h : NaN
 //
 // The field is in the port's [R, A] layout (row-major, A contiguous): the
-// transpose of the TPU kernel's. Two kernels:
-//
-//   * lookup_kernel, the main path's form: it also computes each cell's
-//     indices (a0, a1, r_idx, in_range), which the reference computes in
-//     resample_indices (fastdem_tpu/postprocess/raycasting.py): cell centre,
-//     hypot, azimuth, range bin, azimuth half-width, window width and level,
-//     window start. It reads the map position, the sensor origin and the
-//     window's top-left cell (r0, c0) from device memory, so a launch needs
-//     no host sync and stays capturable in a CUDA graph, and it writes
-//     ray_min and touched and nothing else.
-//   * resample_kernel: the lookup for a caller that holds the indices.
+// transpose of the TPU kernel's. The kernel, lookup_kernel, also computes
+// each cell's indices (a0, a1, r_idx, in_range), which the reference
+// computes in resample_indices (fastdem_tpu/postprocess/raycasting.py):
+// cell centre, hypot, azimuth, range bin, azimuth half-width, window width
+// and level, window start. It reads the map position, the sensor origin and
+// the window's top-left cell (r0, c0) from device memory, so a launch needs
+// no host sync and stays capturable in a CUDA graph, and it writes ray_min
+// and touched and nothing else.
 //
 // Every f32 operation of the index math is the one the plain twin's
 // separate PyTorch ops perform, in the same order: written with the
@@ -92,21 +89,6 @@ __device__ __forceinline__ void store(float h, bool in_range, int i,
   const bool t = isfinite(h) && in_range;
   ray_min[i] = t ? h : __int_as_float(0x7fc00000);
   touched[i] = t ? 1 : 0;
-}
-
-__global__ void resample_kernel(const float* __restrict__ field,
-                                const int* __restrict__ a0,
-                                const int* __restrict__ a1,
-                                const int* __restrict__ r_idx,
-                                const uint8_t* __restrict__ in_range,
-                                int A, int n, float* __restrict__ ray_min,
-                                uint8_t* __restrict__ touched) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* row = field + (size_t)r_idx[i] * A;
-  float h = __ldg(row + a0[i]);
-  if (a1 != nullptr) h = min_nan(h, __ldg(row + a1[i]));
-  store(h, in_range[i] != 0, i, ray_min, touched);
 }
 
 }  // namespace
@@ -195,20 +177,6 @@ extern "C" {
 
 const char* fastdem_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// Launches K4 on `stream`; returns the cudaError_t of the launch (0 = ok).
-// All pointers are device pointers; a1 may be null (one read per cell).
-// Nothing is allocated or synchronised.
-int fastdem_resample(const float* field, const int* a0, const int* a1,
-                     const int* r_idx, const uint8_t* in_range, int A, int n,
-                     float* ray_min, uint8_t* touched, void* stream) {
-  if (A <= 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  resample_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      field, a0, a1, r_idx, in_range, A, n, ray_min, touched);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches the main path's K4, the lookup with its index math, on `stream`.

@@ -25,6 +25,9 @@ whole map update run on a sensor-centred window of the map and are
 written back (``window_update``); the window's top-left cell stays on the
 device, so no step reads it back to the host.
 
+``build_integrate(spmd_blocks=(mx, my))`` is the step of one block of a
+map split into blocks (``parallel.sharding`` runs a mesh of them).
+
 Configurations the port does not run yet raise ``NotImplementedError``
 naming their ROADMAP item; none falls back to another computation.
 """
@@ -269,9 +272,21 @@ def build_integrate(
     only and "xla" the plain twin only. ``window_update`` None engages the
     windowed update where the window is at most half the map, False keeps
     the full-map update.
+
+    ``spmd_blocks``: (mx, my) -- build the step of ONE block of a map split
+    into mx x my blocks of [rows/mx, cols/my] cells. The step then takes
+    the block's layers as ``state`` (the position stays the whole map's)
+    and the block's coordinates as the keyword ``block=(i, j)``; the same
+    step runs once per block. Each block updates the intersection of the
+    global update window with itself, clamped onto the block, so the
+    blocks need no exchange and together equal the unsharded windowed
+    step. Needs GLOBAL mode and a configuration where the window engages,
+    and a map the mesh divides (ValueError otherwise). ``aux.obs`` is
+    None. ``parallel.sharding`` runs the blocks of a mesh and computes the
+    part of a scan that does not depend on the block once per device.
     """
     dev = resolve_device(device)
-    phase_a, phase_b, moved_position = _build_phases(
+    ph = _build_phases(
         geom, cfg, ray_num_azimuth, ray_range_bin_factor, ray_max_range,
         scatter_mode, voxel_count_mode, ray_exact_window,
         polar_field_impl=polar_field_impl, window_update=window_update,
@@ -279,26 +294,90 @@ def build_integrate(
     )
     local_mode = cfg.mapping.mode == MappingMode.LOCAL
 
+    if spmd_blocks is not None:
+
+        def integrate_block(
+            state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None, *, block
+        ):
+            sh = ph.shared(state.position, xyz, mask, T_bs, T_wb)
+            pa = ph.block(sh, state.position, intensity, color_packed, block)
+            state = ph.update(state, torch.any(mask), pa)
+            aux = IntegrateAux(
+                world_xyz=sh.xyz_world, world_mask=sh.keep, z_var=sh.z_var,
+                obs=None, oow_points=sh.oow_points,
+            )
+            return state, aux
+
+        return integrate_block
+
     def integrate(state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
         # The post-move LOCAL position is pure pose arithmetic, so phase A
         # depends only on the inputs, not on the carried layers.
         position = (
-            moved_position(state.position, T_wb[:2, 3])
+            ph.moved_position(state.position, T_wb[:2, 3])
             if local_mode
             else state.position
         )
-        pa = phase_a(position, xyz, mask, T_bs, T_wb, intensity, color_packed)
-        state = phase_b(state, T_wb, torch.any(mask), pa)
-        obs, _ray, _origin, xyz_world, keep, z_var, win, oow = pa
+        sh = ph.shared(position, xyz, mask, T_bs, T_wb)
+        pa = ph.block(sh, position, intensity, color_packed)
+        if local_mode:
+            state = gridmap.move(geom, state, T_wb[:2, 3])
+        state = ph.update(state, torch.any(mask), pa)
+        obs, win = pa.obs, pa.store
         if win is not None:
             obs = _expand_obs(geom, obs, win)
         aux = IntegrateAux(
-            world_xyz=xyz_world, world_mask=keep, z_var=z_var, obs=obs,
-            oow_points=oow,
+            world_xyz=sh.xyz_world, world_mask=sh.keep, z_var=sh.z_var, obs=obs,
+            oow_points=sh.oow_points,
         )
         return state, aux
 
     return integrate
+
+
+@dataclasses.dataclass
+class SharedScan:
+    """The part of one scan's phase A that does not depend on a map block:
+    computed once per device and shared by that device's blocks."""
+
+    xyz_world: torch.Tensor
+    keep: torch.Tensor
+    z_var: torch.Tensor
+    sensor_origin: torch.Tensor
+    # Top-left cell of the global update window (int32 device scalars),
+    # when the windowed update is on.
+    gwin: Optional[tuple] = None
+    in_gwin: Optional[torch.Tensor] = None
+    oow_points: Optional[torch.Tensor] = None
+    # (r0, c0, wr, wc) of the ray window of a full-map update, when the
+    # ray reaches less than the map.
+    ray_window: Optional[tuple] = None
+    # The polar ray field [R, A] (K1's output), or the sampled raycast's
+    # full-map (ray_min, touched).
+    field: Optional[torch.Tensor] = None
+    ray_full: Optional[tuple] = None
+    # (zlo, zhi) of the unsharded rasterizer's points (blocks only).
+    z_bounds: Optional[tuple] = None
+
+
+@dataclasses.dataclass
+class BlockScan:
+    """One block's (or the whole map's) phase A output."""
+
+    obs: raster.CellObservations
+    ray: Optional[tuple]
+    sensor_origin: torch.Tensor
+    # The window phase B updates, in the state's own cell offsets (None:
+    # the whole state).
+    store: Optional["_Window"]
+
+
+@dataclasses.dataclass
+class _Phases:
+    shared: object  # (position, xyz, mask, T_bs, T_wb) -> SharedScan
+    block: object  # (SharedScan, position, intensity, color, block=None) -> BlockScan
+    update: object  # (state, frame_nonempty, BlockScan) -> state; no move
+    moved_position: object
 
 
 def _build_phases(
@@ -314,12 +393,21 @@ def _build_phases(
     window_update: Optional[bool] = None,
     window_margin: float = 2.0,
     spmd_blocks: Optional[tuple] = None,
+    full_blocks: bool = False,
     *,
     device: torch.device,
-):
-    """Split the step into ``phase_a`` (per-scan work independent of the
-    carried layers), ``phase_b`` (the sequential map update) and
-    ``moved_position`` (gridmap.move's lattice walk of the position)."""
+) -> _Phases:
+    """Split the step into ``shared`` (the per-scan work that depends on
+    the inputs only), ``block`` (the rest of phase A, for the whole map or
+    for one block: rasterizer and K4), ``update`` (phase B's recurrences,
+    after the LOCAL move) and ``moved_position`` (gridmap.move's lattice
+    walk of the position).
+
+    ``spmd_blocks`` = (mx, my) builds the phases of a map split into blocks:
+    by default the windowed blocks of ``build_integrate(spmd_blocks=...)``;
+    with ``full_blocks`` each block updates all of itself (the full-map
+    update, any mode), for ``parallel.sharding``'s fallback.
+    """
     _check_config(cfg)
     if voxel_count_mode is None:
         voxel_count_mode = cfg.raycasting.voxel_count_mode
@@ -338,8 +426,6 @@ def _build_phases(
             f"scatter_mode={scatter_mode!r}",
             "section 1, the scatter-mode note after item 19",
         )
-    if spmd_blocks is not None:
-        raise _not_ported("spmd_blocks (sharded maps)", "section 1, item 19")
     sensor = create_sensor_model(cfg.sensor_model)
     pf = cfg.point_filter
     local_mode = cfg.mapping.mode == MappingMode.LOCAL
@@ -378,9 +464,36 @@ def _build_phases(
     sampled = cfg.raycasting.enabled and cfg.raycasting.method == "sampled"
     windowed = (
         window_update is not False
+        and not full_blocks
         and 2 * upd_wr * upd_wc <= geom.num_cells
         and not sampled
     )
+    # Blocks (the reference's shard_map formulation): the global window is
+    # clamped onto each block; a window of min(global window, block) cells
+    # placed at clip(g0 - block0, 0, block - w') covers window-intersect-
+    # block, and blocks are disjoint, so the blocks' updates tile the
+    # global windowed update. Points are masked to the GLOBAL window, so a
+    # block window clamped at a block edge never rasterizes a point the
+    # unsharded step drops.
+    upd_wr_g, upd_wc_g = upd_wr, upd_wc
+    block_shape = None
+    if spmd_blocks is not None:
+        smx, smy = int(spmd_blocks[0]), int(spmd_blocks[1])
+        if not full_blocks and local_mode:
+            raise ValueError("spmd_blocks requires GLOBAL mapping mode")
+        if not full_blocks and not windowed:
+            raise ValueError(
+                "spmd_blocks requires a configuration where the windowed "
+                "update engages (finite point_filter.range_max with a "
+                "window at most half the map; the polar raycast or none)"
+            )
+        if smx < 1 or smy < 1 or geom.rows % smx or geom.cols % smy:
+            raise ValueError(
+                f"map shape {geom.shape} not divisible by mesh {tuple(spmd_blocks)}"
+            )
+        block_shape = (geom.rows // smx, geom.cols // smy)
+        upd_wr = min(upd_wr_g, block_shape[0])
+        upd_wc = min(upd_wc_g, block_shape[1])
     # Rows mode at any size: the reference switches to a packed rasterizer
     # above 2^19 cells only because the TPU pads the row table to 128
     # lanes; the card does not (4M cells x 4 lanes is ~64 MB).
@@ -421,7 +534,7 @@ def _build_phases(
         c0 = torch.clamp(torch.clamp(sc, 0, geom.cols) - wc // 2, 0, geom.cols - wc)
         return r0, c0
 
-    def phase_a(position, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
+    def shared(position, xyz, mask, T_bs, T_wb):
         # ---- 1. Preprocess ----
         T_ws = T_wb @ T_bs
         r3 = T_ws[2, :3]  # third row of the sensor->world rotation
@@ -438,82 +551,134 @@ def _build_phases(
         )
         xyz_world = tfm.transform_points(xyz_base, T_wb)
         sensor_origin = T_ws[:3, 3]
+        out = SharedScan(
+            xyz_world=xyz_world, keep=keep, z_var=z_var, sensor_origin=sensor_origin
+        )
 
         # ---- 2. The sensor-centred update window ----
-        upd_window = None
-        win = None
-        oow_points = None
         if windowed:
-            ur0, uc0 = window_at(position, sensor_origin, upd_wr, upd_wc)
-            upd_window = (ur0, uc0, upd_wr, upd_wc)
-            win = _Window(*upd_window)
+            ur0, uc0 = window_at(position, sensor_origin, upd_wr_g, upd_wc_g)
+            out.gwin = (ur0, uc0)
             # Surviving in-map points the window misses would be dropped:
             # count them, so the facade can warn.
             pr, pc_, in_map = geom.index_of(position, xyz_world[:, :2])
-            in_win = (
-                (pr >= ur0) & (pr < ur0 + upd_wr) & (pc_ >= uc0) & (pc_ < uc0 + upd_wc)
+            out.in_gwin = (
+                (pr >= ur0) & (pr < ur0 + upd_wr_g) & (pc_ >= uc0) & (pc_ < uc0 + upd_wc_g)
             )
-            oow_points = torch.sum(keep & in_map & ~in_win).to(torch.int32)
+            out.oow_points = torch.sum(keep & in_map & ~out.in_gwin).to(torch.int32)
+        if block_shape is not None:
+            # Blocks quantize z over the unsharded rasterizer's points.
+            gwin = (*out.gwin, upd_wr_g, upd_wc_g) if windowed else None
+            _, valid, _, _ = raster._window_ids(geom, position, xyz_world, keep, gwin)
+            out.z_bounds = raster.z_range_of(xyz_world[:, 2], valid)
 
-        # ---- 3. Rasterize, with the polar slope scatter riding along ----
-        extra = None
-        ray_window = None
-        ray = None
+        # ---- 3. The raycast: the polar slope scatter and the ray field
+        # (K1), or the sampled rays ----
         if sampled:
             # Exactness first: every ray sampled S times and scatter-minned
             # into the full map; no K1 / K4.
             origin_inside = geom.is_inside(position, sensor_origin[:2])
-            ray = raycast.ray_min_height_sampled(
+            out.ray_full = raycast.ray_min_height_sampled(
                 geom, position, xyz_world, keep & origin_inside, sensor_origin
             )
         elif cfg.raycasting.enabled:
             origin_inside = geom.is_inside(position, sensor_origin[:2])
-            extra = raycast.polar_scatter_spec(
+            table = raster.scatter_min_table(*raycast.polar_scatter_spec(
                 geom, position, xyz_world, keep & origin_inside,
                 sensor_origin, ray_num_azimuth, ray_range_bin_factor,
                 ray_max_range,
+            ))
+            out.field = raycast.polar_smeared_field(
+                geom, sensor_origin, table,
+                ray_num_azimuth, ray_range_bin_factor, ray_max_range,
+                exact_window=ray_exact_window, impl=impl, windows=windows,
             )
-            if upd_window is not None:
-                ray_window = upd_window
-            elif (ray_wr, ray_wc) != geom.shape:
-                r0, c0 = window_at(position, sensor_origin, ray_wr, ray_wc)
-                ray_window = (r0, c0, ray_wr, ray_wc)
+            if not windowed and (ray_wr, ray_wc) != geom.shape:
+                out.ray_window = (
+                    *window_at(position, sensor_origin, ray_wr, ray_wc), ray_wr, ray_wc
+                )
+        return out
+
+    def block(sh, position, intensity=None, color_packed=None, block=None):
+        """Rasterize and look the field up (K4) for the whole map
+        (``block`` None) or for block ``(i, j)``."""
+        dev = sh.keep.device
+        keep_r = sh.keep
+        store = None
+        host_cells = None  # a full block's (r0, c0, wr, wc) as host ints
+        if block is None:
+            upd_window = None
+            if windowed:
+                upd_window = (*sh.gwin, upd_wr, upd_wc)
+                store = _Window(*upd_window)
+            cells = upd_window
+        else:
+            bi, bj = (int(v) for v in block)
+            br0 = torch.tensor(bi * block_shape[0], dtype=torch.int32, device=dev)
+            bc0 = torch.tensor(bj * block_shape[1], dtype=torch.int32, device=dev)
+            if windowed:
+                # Two offsets: the rasterizer and K4 take the window in
+                # global cells, phase B stores it in the block's own cells.
+                lur0 = torch.clamp(sh.gwin[0] - br0, 0, block_shape[0] - upd_wr)
+                luc0 = torch.clamp(sh.gwin[1] - bc0, 0, block_shape[1] - upd_wc)
+                upd_window = (br0 + lur0, bc0 + luc0, upd_wr, upd_wc)
+                store = _Window(lur0, luc0, upd_wr, upd_wc)
+                keep_r = sh.keep & sh.in_gwin
+            else:
+                upd_window = (br0, bc0, *block_shape)
+                host_cells = (bi * block_shape[0], bj * block_shape[1], *block_shape)
+            cells = upd_window
 
         obs = raster.rasterize_scatter_rows(
             geom,
             position,
-            xyz_world,
-            keep,
-            z_var,
+            sh.xyz_world,
+            keep_r,
+            sh.z_var,
             intensity=intensity,
             color_packed=color_packed,
             with_voxel_count=cfg.raycasting.enabled,
-            extra_min_scatter=extra,
             voxel_count_mode=voxel_count_mode,
             window=upd_window,
+            z_bounds=sh.z_bounds,
         )
 
-        # ---- 4. The ray field (K1) and its per-cell lookup with the index
-        # math (K4); with exact_window one read per cell covers the whole
+        # ---- 4. The per-cell lookup of the field with the index math
+        # (K4); with exact_window one read per cell covers the whole
         # azimuth window ----
-        if cfg.raycasting.enabled and not sampled:
-            smeared = raycast.polar_smeared_field(
-                geom, sensor_origin, obs.extra,
-                ray_num_azimuth, ray_range_bin_factor, ray_max_range,
-                exact_window=ray_exact_window, impl=impl, windows=windows,
-            )
+        ray = None
+        if sh.ray_full is not None:
+            # The sampled raycast (never windowed): the whole map's fields,
+            # or a full block's part of them.
+            ray = sh.ray_full
+            if host_cells is not None:
+                r0, c0, wr, wc = host_cells
+                ray = tuple(t[r0:r0 + wr, c0:c0 + wc] for t in ray)
+        elif sh.field is not None:
+            ray_window = cells if cells is not None else sh.ray_window
             ray_min, ray_touched = k4.resample_lookup(
-                smeared, lookup, position, sensor_origin, window=ray_window,
+                sh.field, lookup, position, sh.sensor_origin, window=ray_window,
                 two_reads=not ray_exact_window,
             )
-            if ray_window is not None and upd_window is None:
-                # Only the ray window is active: the full-map update takes
-                # full-map fields.
-                ray_win = _Window(*ray_window)
-                ray_min = ray_win.expand(geom, ray_min, np.nan)
-                ray_touched = ray_win.expand(geom, ray_touched, False)
+            if sh.ray_window is not None:
+                r0, c0, wr, wc = sh.ray_window
+                if cells is None:
+                    # Only the ray window is active: the full-map update
+                    # takes full-map fields.
+                    ray_win = _Window(r0, c0, wr, wc)
+                    ray_min = ray_win.expand(geom, ray_min, np.nan)
+                    ray_touched = ray_win.expand(geom, ray_touched, False)
+                else:
+                    # A full block: no ray reaches beyond the ray window.
+                    rr = cells[0] + torch.arange(cells[2], dtype=torch.int32, device=dev)
+                    cc = cells[1] + torch.arange(cells[3], dtype=torch.int32, device=dev)
+                    inside = ((rr >= r0) & (rr < r0 + wr))[:, None] & (
+                        (cc >= c0) & (cc < c0 + wc)
+                    )[None, :]
+                    ray_min = torch.where(inside, ray_min, np.nan)
+                    ray_touched = ray_touched & inside
             ray = (ray_min, ray_touched)
-        return obs, ray, sensor_origin, xyz_world, keep, z_var, win, oow_points
+        return BlockScan(obs=obs, ray=ray, sensor_origin=sh.sensor_origin, store=store)
 
     def update_layers(state, obs, ray, sensor_origin, frame_nonempty):
         """The map update on a state whose layer shapes match ``obs``."""
@@ -536,12 +701,10 @@ def _build_phases(
             )
         return state
 
-    def phase_b(state, T_wb, frame_nonempty, pa):
-        obs, ray, sensor_origin, _xyz_world, _keep, _z_var, win, _oow = pa
-        if local_mode:
-            state = gridmap.move(geom, state, T_wb[:2, 3])
+    def update(state, frame_nonempty, pa):
+        win = pa.store
         if win is None:
-            return update_layers(state, obs, ray, sensor_origin, frame_nonempty)
+            return update_layers(state, pa.obs, pa.ray, pa.sensor_origin, frame_nonempty)
 
         # Windowed update: the same per-cell recurrences on a window of
         # every layer, written back into a copy of the layer. Every touched
@@ -550,7 +713,7 @@ def _build_phases(
         views = {k: win.read(v) for k, v in state.layers.items()}
         vstate = update_layers(
             GridMapState(layers=views, position=state.position),
-            obs, ray, sensor_origin, frame_nonempty,
+            pa.obs, pa.ray, pa.sensor_origin, frame_nonempty,
         )
         new_layers = {}
         for k, full in state.layers.items():
@@ -561,7 +724,7 @@ def _build_phases(
             new_layers[k] = win.write_(base, vstate.layers[k])
         return GridMapState(layers=new_layers, position=state.position)
 
-    return phase_a, phase_b, moved_position
+    return _Phases(shared=shared, block=block, update=update, moved_position=moved_position)
 
 
 def build_integrate_sequence(

@@ -103,6 +103,22 @@ def _scatter_min_rows(ids: torch.Tensor, upd: torch.Tensor, nrows: int) -> torch
     return table.scatter_reduce_(0, index, upd, "amin", include_self=True)
 
 
+def z_range_of(z: torch.Tensor, valid: torch.Tensor):
+    """(min, max) of ``z`` over the ``valid`` points (+inf, -inf if none):
+    the range the rasterizer's argmin lane quantizes z over."""
+    return torch.min(torch.where(valid, z, _INF)), torch.max(torch.where(valid, z, -_INF))
+
+
+def scatter_min_table(ids: torch.Tensor, values: torch.Tensor, size: int) -> torch.Tensor:
+    """f32 min of ``values`` at ``ids`` over a table of ``size`` entries
+    whose last is the dump slot; returns the table without it, +inf where
+    nothing landed. Exact (an int32 min of the ordered bit map)."""
+    et = torch.full((size,), _IMAX, dtype=torch.int32, device=values.device)
+    et.scatter_reduce_(0, ids.long(), _f32_ordered_i32(values), "amin", include_self=True)
+    et = et[: size - 1]
+    return torch.where(et == _IMAX, _INF, _i32_ordered_f32(et))
+
+
 def rasterize_scatter_rows(
     geom: GridGeometry,
     position: torch.Tensor,
@@ -115,6 +131,7 @@ def rasterize_scatter_rows(
     extra_min_scatter=None,
     voxel_count_mode: str = "exact",
     window=None,
+    z_bounds=None,
 ) -> CellObservations:
     """Row-widened single-index scatter rasterization of one scan.
 
@@ -124,6 +141,11 @@ def rasterize_scatter_rows(
     ``CellObservations.extra``.
     ``window``: optional (r0, c0, wr, wc); the observations are then
     window-shaped (see ``_window_ids``).
+    ``z_bounds``: optional (zlo, zhi) f32 device scalars that the argmin
+    lane quantizes z over, in place of the z range of the points this call
+    keeps. A block of a sharded map passes the range of the whole map's
+    (or the global window's) points, so its argmin carries are the
+    unsharded step's.
     """
     if voxel_count_mode not in ("exact", "span"):
         raise ValueError(f"unknown voxel_count_mode: {voxel_count_mode!r}")
@@ -136,8 +158,9 @@ def rasterize_scatter_rows(
     ids, valid, ncell, shape = _window_ids(geom, position, xyz, mask, window)
     z = xyz[:, 2]
 
-    zlo = torch.min(torch.where(valid, z, _INF))
-    zhi = torch.max(torch.where(valid, z, -_INF))
+    if z_bounds is None:
+        z_bounds = z_range_of(z, valid)
+    zlo, zhi = z_bounds
     zrange = torch.clamp_min(zhi - zlo, 1e-6)
     zq = torch.clamp(floor_i32((z - zlo) / zrange * qmax), 0, qmax)
     iota = torch.arange(n, dtype=torch.int32, device=dev)
@@ -186,13 +209,7 @@ def rasterize_scatter_rows(
 
     extra = None
     if extra_min_scatter is not None:
-        e_ids, e_vals, e_size = extra_min_scatter
-        et = torch.full((e_size,), _IMAX, dtype=torch.int32, device=dev)
-        et.scatter_reduce_(
-            0, e_ids.long(), _f32_ordered_i32(e_vals), "amin", include_self=True
-        )
-        et = et[: e_size - 1]
-        extra = torch.where(et == _IMAX, _INF, _i32_ordered_f32(et))
+        extra = scatter_min_table(*extra_min_scatter)
 
     min_z_var = z_var[amin]
     color = None

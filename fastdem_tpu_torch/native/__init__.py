@@ -7,8 +7,9 @@ package's sources, copied (the code unchanged; two comments cite the C++
 reference's headers by their place in its tree). On first use they are
 compiled with
 ``g++ -O3 -std=c++17 -shared -fPIC -pthread`` into
-``fastdem_tpu_torch/native/_build/libfastdem_io.so`` (rebuilt when a source
-is newer) and bound through their plain-C ABI.
+``fastdem_tpu_torch/native/_build/libfastdem_io.so`` (or the directory
+``set_build_dir`` names; rebuilt when a source is newer) and bound through
+their plain-C ABI.
 
 Without a toolchain the library is unavailable: ``available()`` says so,
 the loaders return None, and ``ScanStream`` parses in Python; each of these
@@ -56,6 +57,17 @@ class _CloudBuffers(ctypes.Structure):
         ("error", ctypes.c_int32),
         ("viewpoint", ctypes.c_float * 7),
     ]
+
+
+def set_build_dir(path: str) -> None:
+    """Build into and load from ``path`` from now on (a program-cache
+    bundle, ``runtime.aotcache``). A library already loaded stays loaded:
+    the call then only warns."""
+    global _BUILD_DIR, _LIB
+    _BUILD_DIR = os.path.abspath(path)
+    _LIB = os.path.join(_BUILD_DIR, "libfastdem_io.so")
+    if _tried:
+        log.warning("native scan IO is already loaded; %s takes effect in a new process", path)
 
 
 def _build() -> Optional[str]:

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc at first use and load them.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
-into ``csrc/_build/<stem>_<hash>.so``, keyed by a hash of the source and
-the flags, then loaded with ctypes. ``build`` starts one nvcc per missing
+into ``csrc/_build/<stem>_<hash>.so`` (or the directory ``set_build_dir``
+names: a program-cache bundle, ``runtime.aotcache``), keyed by a hash of
+the source and the flags, then loaded with ctypes. ``build`` starts one nvcc per missing
 library, all at once, and waits for them; a failed build raises with
 nvcc's output.
 """
@@ -29,6 +30,13 @@ NVCC_FLAGS = (
 # no entry.
 build_logs: Dict[str, str] = {}
 build_seconds: Dict[str, float] = {}
+
+
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` from now on. Libraries already
+    loaded stay loaded from where they were."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
 
 
 def _nvcc() -> str:

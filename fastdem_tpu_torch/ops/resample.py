@@ -12,21 +12,16 @@ or a window) it returns
                      NaN where the cell is not touched;
   touched bool[h, w] = isfinite(min) & in_range.
 
-Two forms:
+``resample_lookup`` is the wrapper: the kernel also computes each cell's
+lookup indices (``lookup_indices``, the reference's ``resample_indices``)
+from the map position, the sensor origin and the window offsets, all read
+on the device. Its twin, ``resample_lookup_plain``, is ``lookup_indices``
+followed by ``resample_plain`` (the lookup of given indices: int32 ``a0``,
+optional ``a1``, ``r_idx`` and bool ``in_range``).
 
-  * ``resample_lookup``, the main path's: the kernel also computes each
-    cell's lookup indices (``lookup_indices``, the reference's
-    ``resample_indices``) from the map position, the sensor origin and the
-    window offsets, all read on the device. Its twin,
-    ``resample_lookup_plain``, is ``lookup_indices`` followed by
-    ``resample_plain``.
-  * ``resample``: the lookup for a caller that holds the indices
-    (int32 ``a0``, optional ``a1``, ``r_idx`` and bool ``in_range``). No
-    module of the package calls it; only its tests do.
-
-Each launches its kernel (``csrc/resample.cu``) for a CUDA tensor and runs
-its plain twin for a CPU tensor; a build or launch failure raises.
-``launches`` counts kernel launches of both forms.
+It launches the kernel (``csrc/resample.cu``) for a CUDA tensor and runs
+the plain twin for a CPU tensor; a build or launch failure raises.
+``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -119,8 +114,6 @@ def library():
         return _lib
     lib = cuda_build.load(SOURCE)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fastdem_resample.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp, vp, vp]
-    lib.fastdem_resample.restype = ci
     lib.fastdem_resample_lookup.argtypes = [
         vp, vp, vp, ci, ci, vp, vp, ctypes.POINTER(_LookupParams), vp, vp, vp,
     ]
@@ -131,63 +124,6 @@ def library():
     return lib
 
 
-def _check_inputs(field, a0, a1, r_idx, in_range):
-    if field.dtype != torch.float32 or field.dim() != 2 or not field.is_contiguous():
-        raise ValueError(
-            f"field must be contiguous f32[R, A], got {field.dtype} {tuple(field.shape)}"
-        )
-    shape = tuple(a0.shape)
-    named = [("a0", a0, torch.int32), ("r_idx", r_idx, torch.int32),
-             ("in_range", in_range, torch.bool)]
-    if a1 is not None:
-        named.append(("a1", a1, torch.int32))
-    for name, t, dtype in named:
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {dtype}{list(shape)}, got {t.dtype} {tuple(t.shape)}")
-        if t.device != field.device:
-            raise ValueError(f"{name} is on {t.device}, the field on {field.device}")
-
-
-def resample_cuda(
-    field: torch.Tensor,
-    a0: torch.Tensor,
-    a1: Optional[torch.Tensor],
-    r_idx: torch.Tensor,
-    in_range: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K4 on the current stream; every tensor on one CUDA device."""
-    global launches
-    if field.device.type != "cuda":
-        raise ValueError(f"K4 needs a CUDA tensor, got one on {field.device}")
-    _check_inputs(field, a0, a1, r_idx, in_range)
-    lib = library()
-    a0, r_idx, in_range = a0.contiguous(), r_idx.contiguous(), in_range.contiguous()
-    a1 = a1.contiguous() if a1 is not None else None
-    ray_min = torch.empty(a0.shape, dtype=torch.float32, device=field.device)
-    touched = torch.empty(a0.shape, dtype=torch.bool, device=field.device)
-    stream = torch.cuda.current_stream(field.device).cuda_stream
-    err = lib.fastdem_resample(
-        ctypes.c_void_p(field.data_ptr()),
-        ctypes.c_void_p(a0.data_ptr()),
-        ctypes.c_void_p(a1.data_ptr() if a1 is not None else None),
-        ctypes.c_void_p(r_idx.data_ptr()),
-        ctypes.c_void_p(in_range.data_ptr()),
-        ctypes.c_int(field.shape[1]),
-        ctypes.c_int(a0.numel()),
-        ctypes.c_void_p(ray_min.data_ptr()),
-        ctypes.c_void_p(touched.data_ptr()),
-        ctypes.c_void_p(stream),
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"K4 launch failed: cudaError {err} "
-            f"({lib.fastdem_cuda_error_string(err).decode()})"
-        )
-    if a0.numel():
-        launches += 1
-    return ray_min, touched
-
-
 def resample_plain(
     field: torch.Tensor,
     a0: torch.Tensor,
@@ -195,7 +131,8 @@ def resample_plain(
     r_idx: torch.Tensor,
     in_range: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K4."""
+    """The lookup of given indices in plain PyTorch: the twin's second
+    half (``resample_lookup_plain``)."""
     A = field.shape[1]
     flat = field.reshape(-1)
     base = r_idx.long() * A
@@ -204,21 +141,6 @@ def resample_plain(
         h = torch.minimum(h, flat[base + a1.long()])
     touched = torch.isfinite(h) & in_range
     return torch.where(touched, h, float("nan")), touched
-
-
-def resample(
-    field: torch.Tensor,
-    a0: torch.Tensor,
-    a1: Optional[torch.Tensor],
-    r_idx: torch.Tensor,
-    in_range: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4 for a CUDA tensor, the plain twin for a CPU tensor."""
-    if field.device.type == "cuda":
-        return resample_cuda(field, a0, a1, r_idx, in_range)
-    if field.device.type == "cpu":
-        return resample_plain(field, a0, a1, r_idx, in_range)
-    raise ValueError(f"no resample implementation for device {field.device}")
 
 
 def _hypot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

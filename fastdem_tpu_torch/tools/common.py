@@ -20,6 +20,18 @@ def add_config_args(ap) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device to map on (default: cuda; there is no "
                          "fallback when it is absent)")
+    ap.add_argument("--program-cache", default=None, metavar="DIR",
+                    help="a program-cache bundle (runtime/aotcache.py): load the "
+                         "built kernels and native IO from DIR, build missing ones "
+                         "into it")
+
+
+def enable_program_cache(args) -> None:
+    """Enable ``--program-cache`` before anything is built."""
+    if args.program_cache:
+        from fastdem_tpu_torch.runtime import aotcache
+
+        aotcache.enable(args.program_cache)
 
 
 def site_terrain(x, y):

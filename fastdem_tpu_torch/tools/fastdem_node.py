@@ -15,7 +15,7 @@ Scan sources:
 
 Usage:
   python -m fastdem_tpu_torch.tools.fastdem_node --preset local_mapping \\
-      --synthetic 20 --out DIR [--device cuda]
+      --synthetic 20 --out DIR [--device cuda] [--program-cache DIR]
 """
 
 import argparse
@@ -26,7 +26,12 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from fastdem_tpu_torch.tools.common import add_config_args, load_node_config, scan_source
+from fastdem_tpu_torch.tools.common import (
+    add_config_args,
+    enable_program_cache,
+    load_node_config,
+    scan_source,
+)
 
 
 def main(argv=None):
@@ -49,6 +54,7 @@ def main(argv=None):
                     help="serve the live 3D viewer on this port while mapping "
                          "(0 = pick a free port); browse the printed URL")
     args = ap.parse_args(argv)
+    enable_program_cache(args)
 
     from fastdem_tpu_torch.cloud import pointcloud as pc
     from fastdem_tpu_torch.grid.gridmap import layers

@@ -24,7 +24,7 @@ throughput line (scans/s, ms/scan) on stderr.
 
 Usage:
   python -m fastdem_tpu_torch.tools.fastdem_replay --preset local_mapping \\
-      --synthetic 64 --batch 16 [--out DIR] [--device cuda]
+      --synthetic 64 --batch 16 [--out DIR] [--device cuda] [--program-cache DIR]
 """
 
 import argparse
@@ -34,7 +34,12 @@ import time
 
 import numpy as np
 
-from fastdem_tpu_torch.tools.common import add_config_args, load_node_config, scan_source
+from fastdem_tpu_torch.tools.common import (
+    add_config_args,
+    enable_program_cache,
+    load_node_config,
+    scan_source,
+)
 
 
 def main(argv=None):
@@ -60,6 +65,7 @@ def main(argv=None):
                     help="point capacity per scan with --prefetch (longer scans are "
                          "truncated)")
     args = ap.parse_args(argv)
+    enable_program_cache(args)
 
     import torch
 

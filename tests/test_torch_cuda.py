@@ -20,7 +20,11 @@ bit, the node's driver with async intake against its sync intake,
 list of CUDA tensors; the grid kNN and radius search against the brute
 tile and the CPU, and ``build_dem`` on the card against the CPU; normals,
 segmentation and registration on the card against the CPU, and the PRNG's
-draws on the card equal to the CPU's.
+draws on the card equal to the CPU's; the block-sharded map on a 2x2 mesh
+of one card against the unsharded step bit for bit (K1 once and K4 once
+per block per scan), two gloo processes on the card against one process,
+the sharded post-processing chain against the unsharded one, and a
+program-cache bundle that a second process loads without building.
 """
 
 import numpy as np
@@ -166,46 +170,6 @@ def test_session_on_card_matches_cpu(cuda, impl, launches):
     assert k1.launches - before == launches
     assert k4.launches - before4 == 4
     assert_states_agree(session("cpu", "auto"), gpu)
-
-
-@pytest.mark.parametrize("two_reads", [True, False])
-@pytest.mark.parametrize("R,A,cells", [(515, 2048, 150), (962, 2048, 484)])
-def test_k4_matches_plain_twin(cuda, two_reads, R, A, cells):
-    rng = np.random.default_rng(1)
-    field = rng.uniform(-2.0, 0.5, (R, A)).astype(np.float32)
-    field[rng.random((R, A)) < 0.97] = np.inf
-    field[rng.random((R, A)) < 0.01] = np.nan
-    shape = (cells, cells)
-    args = [
-        torch.tensor(field, device=cuda),
-        torch.tensor(rng.integers(0, A, shape).astype(np.int32), device=cuda),
-        torch.tensor(rng.integers(0, A, shape).astype(np.int32), device=cuda)
-        if two_reads else None,
-        torch.tensor(rng.integers(0, R, shape).astype(np.int32), device=cuda),
-        torch.tensor(rng.random(shape) < 0.9, device=cuda),
-    ]
-    before = k4.launches
-    h, t = k4.resample_cuda(*args)
-    torch.cuda.synchronize()
-    assert k4.launches == before + 1
-    h_ref, t_ref = k4.resample_plain(*args)
-    np.testing.assert_array_equal(t.cpu().numpy(), t_ref.cpu().numpy())
-    np.testing.assert_array_equal(h.cpu().numpy().view(np.int32),
-                                  h_ref.cpu().numpy().view(np.int32))
-    # NaN in the field reaches the cell (touched False, NaN out), as in the twin.
-    assert t.sum() > 0 and torch.isnan(h[~t]).all()
-
-
-def test_k4_rejects_bad_inputs(cuda):
-    field = torch.zeros((8, 16), device=cuda)
-    idx = torch.zeros((3, 4), dtype=torch.int32, device=cuda)
-    ok = torch.ones((3, 4), dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError, match="contiguous"):
-        k4.resample_cuda(field.t(), idx, None, idx, ok)
-    with pytest.raises(ValueError, match="a0"):
-        k4.resample_cuda(field, idx.long(), None, idx, ok)
-    with pytest.raises(ValueError, match="in_range"):
-        k4.resample_cuda(field, idx, None, idx, ok.cpu())
 
 
 @pytest.mark.parametrize("two_reads", [False, True])
@@ -583,3 +547,134 @@ def test_prng_draws_on_card_equal_cpu(cuda):
         a = prng.randint(key, (1000, 3), 0, 2**20, device=cuda).cpu()
         b = prng.randint(key, (1000, 3), 0, 2**20, device="cpu")
         assert torch.equal(a, b)
+
+
+def sharded_session(dev, shape=(2, 2), n_scans=4):
+    from fastdem_tpu_torch.parallel import sharding as sh
+
+    geom = fd.GridGeometry.from_length(40.0, 40.0, 0.1)
+    cfg = fd.Config()
+    cfg.mapping.mode = fd.MappingMode.GLOBAL
+    cfg.raycasting.enabled = True
+    cfg.point_filter.range_max = 6.0
+    rng = np.random.default_rng(5)
+    stream = []
+    for k in range(n_scans):
+        ang, rad = rng.uniform(0, 2 * np.pi, 8000), rng.uniform(0.5, 5.8, 8000)
+        xyz = np.column_stack([rad * np.cos(ang), rad * np.sin(ang),
+                               rng.normal(-1.0, 0.03, 8000)]).astype(np.float32)
+        pose = np.eye(4, dtype=np.float32)
+        pose[0, 3], pose[1, 3] = -3.0 + 2.1 * k, 1.0 - 0.9 * k
+        stream.append((torch.tensor(xyz, device=dev), torch.tensor(pose, device=dev)))
+    mask = torch.ones(8000, dtype=torch.bool, device=dev)
+    T_bs = torch.eye(4, device=dev)
+    step1 = fd.build_integrate(geom, cfg, device=dev)
+    s1 = fd.create_map_state(geom, cfg, device=dev)
+    mesh = sh.make_mesh(shape[0] * shape[1], shape=shape, devices=[dev])
+    stepN, shard = sh.build_sharded_integrate(geom, cfg, mesh)
+    sN = shard(fd.create_map_state(geom, cfg, device=dev))
+    for xyz, pose in stream:
+        s1, _ = step1(s1, xyz, mask, T_bs, pose)
+    torch.cuda.synchronize()
+    l1, l4 = k1.launches, k4.launches
+    for xyz, pose in stream:
+        sN, aux = stepN(sN, xyz, mask, T_bs, pose)
+    torch.cuda.synchronize()
+    launches = (k1.launches - l1, k4.launches - l4)
+    return geom, s1, sh.gather_state(sN), stepN, launches, aux
+
+
+def test_sharded_step_on_card_bitwise(cuda):
+    geom, s1, got, step, (l1, l4), aux = sharded_session(cuda)
+    assert step.formulation == "shardmap_windowed" and int(aux.oow_points) == 0
+    assert (l1, l4) == (4, 16)  # K1 once per scan (shared), K4 once per block
+    for name, a in s1.layers.items():
+        assert torch.equal(a.view(torch.int32), got.layers[name].view(torch.int32)), name
+    assert int(torch.isfinite(s1.layers["elevation"]).sum()) > 10000
+
+
+def test_sharded_postprocess_on_card_bitwise(cuda):
+    from fastdem_tpu_torch.parallel import sharding as sh
+    from fastdem_tpu_torch.postprocess import apply_postprocess_fn
+
+    geom, s1, _, _, _, _ = sharded_session(cuda, n_scans=2)
+    pp = fd.PostProcessConfig()
+    pp.uncertainty_fusion.enabled = True
+    pp.inpainting.enabled = True
+    pp.feature_extraction.enabled = True
+    names = ("elevation", "upper_bound", "lower_bound")
+    ref = apply_postprocess_fn(geom, pp)(*(s1.layers[k] for k in names))
+    mesh = sh.make_mesh(4, devices=[cuda])
+    out = sh.gather_state(sh.sharded_postprocess(geom, pp, mesh, sh.shard_state(s1, mesh)))
+    for name, a in ref.items():
+        assert torch.equal(torch.isnan(a), torch.isnan(out.layers[name])), name
+        assert torch.equal(a.view(torch.int32), out.layers[name].view(torch.int32)), name
+
+
+def test_two_gloo_processes_on_one_card(cuda, tmp_path):
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from fastdem_tpu_torch.io.npz import save_npz
+    from fastdem_tpu_torch.tools.multihost_demo import synthetic_stream
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = str(tmp_path / "mh.npz")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "fastdem_tpu_torch.tools.multihost_demo", "--pid", str(p),
+         "--nproc", "2", "--coordinator", f"localhost:{port}", "--local-blocks", "2",
+         "--scans", "4", "--points", "4096", "--out", out],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for p in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    geom = fd.GridGeometry.from_length(40.0, 40.0, 0.2)
+    cfg = fd.Config()
+    cfg.mapping.mode = fd.MappingMode.GLOBAL
+    cfg.raycasting.enabled = True
+    cfg.point_filter.range_max = 20.0
+    xyz, T_bs, T_wb = synthetic_stream(4, 4096, 40.0)
+    step = fd.build_integrate(geom, cfg, device=cuda)
+    s = fd.create_map_state(geom, cfg, device=cuda)
+    for k in range(4):
+        s, _ = step(s, torch.tensor(xyz[k], device=cuda),
+                    torch.ones(4096, dtype=torch.bool, device=cuda),
+                    torch.tensor(T_bs, device=cuda), torch.tensor(T_wb[k], device=cuda))
+    ref = str(tmp_path / "one.npz")
+    assert save_npz(ref, geom, s)
+    assert open(out, "rb").read() == open(ref, "rb").read()
+
+
+def test_program_cache_bundle_on_card(cuda, tmp_path):
+    """A process that warms an empty bundle builds K1 and K4 into it; a
+    second process on the filled bundle builds nothing."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    bundle = str(tmp_path / "bundle")
+    code = (
+        "import json, sys; from fastdem_tpu_torch.runtime import aotcache; "
+        "from fastdem_tpu_torch.ops import cuda_build; import fastdem_tpu_torch as fd; "
+        "geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1); cfg = fd.Config(); "
+        "cfg.raycasting.enabled = True; "
+        f"aotcache.warmup(geom, cfg, bundle_dir={bundle!r}, capacities=(4096,)); "
+        "print(json.dumps(cuda_build.build_seconds))"
+    )
+    built = []
+    for _ in range(2):
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                              text=True, timeout=600, env=dict(os.environ, PYTHONPATH=root))
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        built.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    assert set(built[0]) == {"polar_field.cu", "resample.cu"} and built[1] == {}
+    files = {e["file"].split("/")[0] for e in
+             json.load(open(os.path.join(bundle, "manifest.json")))["libraries"]}
+    assert files == {"cuda", "native"}

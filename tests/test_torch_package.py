@@ -48,7 +48,12 @@ def test_import_leaves_jax_out():
             "fastdem_tpu_torch.tools.fastdem_replay", "fastdem_tpu_torch.presets",
             "fastdem_tpu_torch.utils.colors", "fastdem_tpu_torch.cloud.normals",
             "fastdem_tpu_torch.cloud.segmentation", "fastdem_tpu_torch.cloud.registration",
-            "fastdem_tpu_torch.utils.prng", "fastdem_tpu_torch.native"} <= set(modules)
+            "fastdem_tpu_torch.utils.prng", "fastdem_tpu_torch.native",
+            "fastdem_tpu_torch.parallel.sharding", "fastdem_tpu_torch.parallel.distributed",
+            "fastdem_tpu_torch.io.sharded_ckpt", "fastdem_tpu_torch.runtime.aotcache",
+            "fastdem_tpu_torch.tools.multihost_demo", "fastdem_tpu_torch.tools.aot_warmup",
+            "fastdem_tpu_torch.utils.benchtime",
+            "fastdem_tpu_torch.utils.profiling"} <= set(modules)
     jax_dir = os.path.join(ROOT, "fastdem_tpu") + os.sep
     code = (
         "import importlib, os, sys; import fastdem_tpu_torch as fd; "
@@ -91,7 +96,9 @@ def test_no_jax_import_in_sources():
     for new in ("runtime/driver.py", "runtime/wire.py", "io/pcd.py", "tools/fastdem_node.py",
                 "mapping/pipeline.py", "config.py", "presets.py", "cloud/normals.py",
                 "cloud/segmentation.py", "cloud/registration.py", "utils/prng.py",
-                "native/__init__.py"):
+                "native/__init__.py", "parallel/sharding.py", "parallel/distributed.py",
+                "io/sharded_ckpt.py", "runtime/aotcache.py", "tools/multihost_demo.py",
+                "tools/aot_warmup.py", "utils/benchtime.py", "utils/profiling.py"):
         assert os.path.join(PACKAGE, new) in sources, new
     for path in sources:
         with open(path) as f:

@@ -248,11 +248,13 @@ def test_unported_configurations_raise():
     cases = [
         dict(scatter_mode="packed"),
         dict(scatter_mode="twophase"),
-        dict(spmd_blocks=(2, 2)),
     ]
     for kw in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ft.build_integrate(geom, cfg, device="cpu", **kw)
+    # Blocks are ported; a LOCAL map refuses them, as in the reference.
+    with pytest.raises(ValueError, match="GLOBAL"):
+        ft.build_integrate(geom, cfg, spmd_blocks=(2, 2), device="cpu")
     with pytest.raises(ValueError, match="unknown scatter_mode"):
         ft.build_integrate(geom, cfg, scatter_mode="bogus", device="cpu")
 

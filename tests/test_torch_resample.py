@@ -70,7 +70,7 @@ def test_twin_matches_pallas_interpret(rng, two_reads, nan_share):
         jnp.asarray(r), interpret=True,
     ))
     before = k4.launches
-    h, touched = k4.resample(
+    h, touched = k4.resample_plain(
         torch.tensor(field.T.copy()), torch.tensor(a0),
         torch.tensor(a1) if two_reads else None, torch.tensor(r), torch.tensor(in_range),
     )
@@ -83,20 +83,6 @@ def test_twin_matches_pallas_interpret(rng, two_reads, nan_share):
                                   ref[want_touched].view(np.int32))
     assert np.isnan(h.numpy()[~want_touched]).all()
     assert want_touched.sum() > 300
-
-
-def test_kernel_refuses_cpu_tensors_and_bad_inputs(rng):
-    field, a0, a1, r = field_and_indices(rng, 64, 16, (5, 6))
-    args = [torch.tensor(field.T.copy()), torch.tensor(a0), torch.tensor(a1),
-            torch.tensor(r), torch.ones(5, 6, dtype=torch.bool)]
-    with pytest.raises(ValueError, match="CUDA"):
-        k4.resample_cuda(*args)
-    with pytest.raises(ValueError, match="r_idx"):
-        k4._check_inputs(args[0], args[1], args[2], args[3].long(), args[4])
-    with pytest.raises(ValueError, match="in_range"):
-        k4._check_inputs(args[0], args[1], args[2], args[3], args[4][:4])
-    with pytest.raises(ValueError, match="contiguous"):
-        k4._check_inputs(args[0].t(), args[1], args[2], args[3], args[4])
 
 
 def scene(rng, n=6000):
