@@ -238,7 +238,6 @@ def _expand_obs(
         max_intensity=put(obs.max_intensity, np.nan),
         color=put(obs.color, np.nan),
         voxel_count=put(obs.voxel_count, 0.0),
-        extra=obs.extra,
     )
 
 

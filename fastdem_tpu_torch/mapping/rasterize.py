@@ -55,8 +55,6 @@ class CellObservations:
     # Distinct z-voxels (side = grid resolution) among the cell's points:
     # the raycaster's observed-evidence multiplicity.
     voxel_count: Optional[torch.Tensor] = None
-    # The extra min-scatter's table (see rasterize_scatter_rows).
-    extra: Optional[torch.Tensor] = None
 
 
 def _f32_ordered_i32(x: torch.Tensor) -> torch.Tensor:
@@ -128,17 +126,12 @@ def rasterize_scatter_rows(
     intensity: Optional[torch.Tensor] = None,
     color_packed: Optional[torch.Tensor] = None,
     with_voxel_count: bool = False,
-    extra_min_scatter=None,
     voxel_count_mode: str = "exact",
     window=None,
     z_bounds=None,
 ) -> CellObservations:
     """Row-widened single-index scatter rasterization of one scan.
 
-    ``extra_min_scatter``: optional (ids, values, table_size) of an
-    unrelated min-reduction (the raycaster's polar slopes); its table
-    without the dump slot, +inf where empty, lands in
-    ``CellObservations.extra``.
     ``window``: optional (r0, c0, wr, wc); the observations are then
     window-shaped (see ``_window_ids``).
     ``z_bounds``: optional (zlo, zhi) f32 device scalars that the argmin
@@ -207,10 +200,6 @@ def rasterize_scatter_rows(
         mi = -_i32_ordered_f32(t[:, int_lane])
         max_intensity = torch.where(torch.isfinite(mi), mi, float("nan")).reshape(shape)
 
-    extra = None
-    if extra_min_scatter is not None:
-        extra = scatter_min_table(*extra_min_scatter)
-
     min_z_var = z_var[amin]
     color = None
     if color_packed is not None:
@@ -252,7 +241,6 @@ def rasterize_scatter_rows(
         max_intensity=max_intensity,
         color=color,
         voxel_count=voxel_count,
-        extra=extra,
     )
 
 

@@ -24,6 +24,7 @@ import logging
 import os
 import subprocess
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -43,6 +44,9 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 # Why the library is unavailable (None while it is, or before a try).
 build_error: Optional[str] = None
+# Wall seconds of the g++ build this process made (None: found built, or
+# not tried).
+build_seconds: Optional[float] = None
 
 
 class _CloudBuffers(ctypes.Structure):
@@ -71,7 +75,7 @@ def set_build_dir(path: str) -> None:
 
 
 def _build() -> Optional[str]:
-    global build_error
+    global build_error, build_seconds
     try:
         os.makedirs(_BUILD_DIR, exist_ok=True)
         src_mtime = max(os.path.getmtime(s) for s in _SRCS)
@@ -79,7 +83,9 @@ def _build() -> Optional[str]:
             return _LIB
         tmp = f"{_LIB}.{os.getpid()}.tmp"
         cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", *_SRCS, "-o", tmp, "-pthread"]
+        t0 = time.perf_counter()
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        build_seconds = time.perf_counter() - t0
         os.replace(tmp, _LIB)  # atomic: a concurrent build never sees a partial file
         return _LIB
     except (OSError, subprocess.SubprocessError) as e:

@@ -119,8 +119,10 @@ def save_sharded_npz(
     The bytes equal ``io.npz.save_npz``'s of the gathered map (STORE mode,
     Fortran-order ``<f4``, real 32-bit sizes). A map that would need ZIP64
     is refused on every rank before anything is written: False, and no
-    file. ``state`` may also be a whole GridMapState. Every rank calls
-    this; rank 0 writes."""
+    file. A write that fails on rank 0 (a bad path, a full disk) is
+    broadcast after each step, so every rank stops and returns False, and
+    the partial file is removed. ``state`` may also be a whole
+    GridMapState. Every rank calls this; rank 0 writes."""
     from fastdem_tpu_torch.io.npz import METADATA_VERSION, zip_member_info
     from fastdem_tpu_torch.parallel.sharding import ShardedState
 
@@ -191,34 +193,63 @@ def save_sharded_npz(
                 out[r0:r1, lo - c0:hi - c0] = buf.numpy()
         return out
 
-    zf = member = None
+    files = {"zf": None, "member": None}
     ok = True
+
+    def attempt(write_step) -> bool:
+        """Run ``write_step`` on rank 0 while the checkpoint is good, then
+        make rank 0's word every rank's: a write that fails on rank 0 stops
+        the others before they send another column block."""
+        nonlocal ok
+        if write and ok:
+            try:
+                write_step()
+            except (OSError, zipfile.LargeZipFile):
+                ok = False
+        if sharded and world > 1:
+            import torch.distributed as dist
+
+            flag = torch.tensor([int(ok)], dtype=torch.int32)
+            dist.broadcast(flag, 0)
+            ok = bool(flag.item())
+        return ok
+
+    def open_zip():
+        files["zf"] = zipfile.ZipFile(path, "w", zipfile.ZIP_STORED, allowZip64=False)
+
+    def open_member(name):
+        zi = zip_member_info(name + ".npy")
+        zi.file_size = layer_size  # zipfile's ZIP64 check sees the real size
+        files["member"] = files["zf"].open(zi, mode="w")
+        files["member"].write(header)
+
+    def close_member():
+        files["member"].close()
+        files["member"] = None
+
+    def close_zip():
+        files["zf"].writestr(zip_member_info("meta.npy"), meta_buf.getvalue())
+        files["zf"].close()
+        files["zf"] = None
+
     try:
-        if write:
-            zf = zipfile.ZipFile(path, "w", zipfile.ZIP_STORED, allowZip64=False)
-        for name in names:
-            if write:
-                zi = zip_member_info(name + ".npy")
-                zi.file_size = layer_size  # zipfile's ZIP64 check sees the real size
-                member = zf.open(zi, mode="w")
-                member.write(header)
-            for c0 in range(0, cols, bw):
-                blk = column_block(name, c0, min(c0 + bw, cols))
-                if write:
-                    member.write(np.asfortranarray(blk).tobytes(order="F"))
-            if write:
-                member.close()
-                member = None
-        if write:
-            zf.writestr(zip_member_info("meta.npy"), meta_buf.getvalue())
-            zf.close()
-            zf = None
-    except (OSError, zipfile.LargeZipFile):
-        ok = False
+        if attempt(open_zip):
+            for name in names:
+                if not attempt(lambda: open_member(name)):
+                    break
+                for c0 in range(0, cols, bw):
+                    blk = column_block(name, c0, min(c0 + bw, cols))
+                    if not attempt(
+                        lambda: files["member"].write(np.asfortranarray(blk).tobytes(order="F"))
+                    ):
+                        break
+                if not attempt(close_member):
+                    break
+            attempt(close_zip)
     finally:
         # A failed checkpoint leaves no handle open and no truncated file
         # posing as the map.
-        for h in (member, zf):
+        for h in (files["member"], files["zf"]):
             if h is not None:
                 try:
                     h.close()

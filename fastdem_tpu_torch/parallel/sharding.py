@@ -459,9 +459,6 @@ def build_sharded_integrate(
     geom: GridGeometry,
     cfg,
     mesh: BlockMesh,
-    has_intensity: bool = False,
-    has_color: bool = False,
-    donate: bool = True,
     window_update: Optional[bool] = None,
     polar_field_impl: Optional[str] = None,
     **step_kwargs,
@@ -476,10 +473,9 @@ def build_sharded_integrate(
     ``"shardmap_windowed"`` where GLOBAL mode and a finite range filter
     let the window engage, else ``"blocks_fullmap"`` (see the module
     docstring): a choice made from the configuration alone. Neither runs a
-    collective in a GLOBAL step. ``has_intensity`` / ``has_color`` and
-    ``donate`` keep the reference's signature (channels are taken when
-    given; the step never updates its input in place). ``step_kwargs``
-    are ``build_integrate``'s ray, voxel-count and window-margin options.
+    collective in a GLOBAL step. Channels are taken when given; the step
+    never updates its input in place. ``step_kwargs`` are
+    ``build_integrate``'s ray, voxel-count and window-margin options.
 
     Returns (step, shard_fn) with shard_fn(state) = shard_state(state, mesh).
     """
@@ -495,9 +491,6 @@ def build_sharded_integrate_sequence(
     geom: GridGeometry,
     cfg,
     mesh: BlockMesh,
-    has_intensity: bool = False,
-    has_color: bool = False,
-    donate: bool = True,
     **seq_kwargs,
 ):
     """Batched replay over a block-sharded map: K stacked scans
@@ -509,9 +502,7 @@ def build_sharded_integrate_sequence(
     after scan with no host read in between, so the map equals the step
     loop's bit for bit. ``T_bs`` is one 4x4 or one per scan.
     Returns (seq, shard_fn)."""
-    step, shard = build_sharded_integrate(
-        geom, cfg, mesh, has_intensity, has_color, donate, **seq_kwargs
-    )
+    step, shard = build_sharded_integrate(geom, cfg, mesh, **seq_kwargs)
 
     def seq(state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
         static_tbs = T_bs.dim() == 2

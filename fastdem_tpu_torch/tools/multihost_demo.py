@@ -58,7 +58,8 @@ def main(argv=None):
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--pid", type=int, required=True)
     ap.add_argument("--nproc", type=int, required=True)
-    ap.add_argument("--coordinator", default="localhost:12377", help="HOST:PORT of rank 0")
+    ap.add_argument("--coordinator", default=None,
+                    help="HOST:PORT of rank 0 (needed with --nproc > 1)")
     ap.add_argument("--out", default=None, help="npz of the assembled map (rank 0 writes)")
     ap.add_argument("--ckpt", default=None, help="sharded checkpoint directory (every rank)")
     ap.add_argument("--scans", type=int, default=6)
@@ -80,6 +81,8 @@ def main(argv=None):
                          "(build_sharded_integrate_sequence) instead of per scan")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.nproc > 1 and not args.coordinator:
+        ap.error("--coordinator HOST:PORT is needed with --nproc > 1")
 
     import torch
 

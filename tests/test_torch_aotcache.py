@@ -38,12 +38,14 @@ def fresh_builds(monkeypatch):
     """Undo enable() after the test: the build directories, the bundle and
     the native library's loaded state go back to what they were."""
     for mod, names in ((cuda_build, ("BUILD_DIR",)),
-                       (native, ("_BUILD_DIR", "_LIB", "_lib", "_tried", "build_error")),
+                       (native, ("_BUILD_DIR", "_LIB", "_lib", "_tried", "build_error",
+                                  "build_seconds")),
                        (aotcache, ("active",))):
         for name in names:
             monkeypatch.setattr(mod, name, getattr(mod, name))
     monkeypatch.setattr(native, "_tried", False)
     monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "build_seconds", None)
     return monkeypatch
 
 
@@ -68,6 +70,7 @@ def test_warmup_populates_bundle_and_manifest(tmp_path, geom, fresh_builds):
     # The native library was built into the bundle, not the package.
     assert native._LIB == os.path.join(bundle, "native", "libfastdem_io.so")
     assert os.path.exists(native._LIB)
+    assert native.build_seconds > 0  # this process ran g++
     assert {e["file"] for e in manifest["libraries"]} == {"native/libfastdem_io.so"}
     health = aotcache.verify(bundle)
     assert health["fingerprint"] == manifest["fingerprint"]

@@ -12,7 +12,8 @@ checkpoints (``io/sharded_ckpt.py``) and the multi-process worker
     (halos exchanged) likewise, byte for byte.
 (b) ``save_sharded_npz``: the bytes of ``save_npz``, also in small column
     blocks with a ragged tail; a map that would need ZIP64 is refused
-    with no file left.
+    with no file left; a write that fails on rank 0 (a bad path, or an
+    error partway through the zip) fails on both processes, in time.
 (c) Sharded checkpoints: restored onto other mesh shapes and unsharded,
     bit for bit; a resumed session equals the uninterrupted one for Kalman
     and P^2 (the reference's ``tests/test_resume.py``).
@@ -51,15 +52,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_workers(tmp_path, *extra):
-    """Two worker processes on one coordinator; both must exit 0."""
+def run_two(command):
+    """``command(pid, port)`` in two processes on one free coordinator
+    port; returns [(exit code, output)], each waited for with a timeout."""
     port = free_port()
     env = dict(os.environ, PYTHONPATH=ROOT)
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "fastdem_tpu_torch.tools.multihost_demo",
-             "--pid", str(pid), "--nproc", "2", "--coordinator", f"localhost:{port}",
-             "--device", "cpu", "--scans", "4", "--points", "4096", *extra],
+            command(pid, port),
             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for pid in range(2)
@@ -74,9 +74,20 @@ def run_workers(tmp_path, *extra):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-3000:]
-    return outs
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def run_workers(tmp_path, *extra, expect_ok=True):
+    """Two worker processes on one coordinator; both must exit 0 (or,
+    with ``expect_ok`` False, both non-zero)."""
+    results = run_two(lambda pid, port: [
+        sys.executable, "-m", "fastdem_tpu_torch.tools.multihost_demo",
+        "--pid", str(pid), "--nproc", "2", "--coordinator", f"localhost:{port}",
+        "--device", "cpu", "--scans", "4", "--points", "4096", *extra,
+    ])
+    for rc, out in results:
+        assert (rc == 0) == expect_ok, out[-3000:]
+    return [out for _, out in results]
 
 
 def demo_config(pkg, mode="GLOBAL"):
@@ -205,6 +216,59 @@ def test_sharded_npz_refuses_zip64_and_leaves_no_file(tmp_path, monkeypatch):
     # The whole archive past the limit (members each under it) is refused too.
     monkeypatch.setattr(zipfile, "ZIP64_LIMIT", 20000)
     assert save_sharded_npz(path, geom, sharded) is False
+    assert not os.path.exists(path)
+
+
+def test_two_process_unwritable_out_fails_both(tmp_path):
+    """Rank 0 cannot open --out: neither process reports success, and
+    neither waits on a column block nobody receives."""
+    out = str(tmp_path / "missing_dir" / "mh.npz")
+    logs = run_workers(tmp_path, "--scans", "1", "--out", out, expect_ok=False)
+    assert f"wrote {out}: False" in logs[0]
+    assert not os.path.exists(out)
+
+
+MID_WRITE_FAILURE = """
+import sys, zipfile
+import numpy as np, torch
+torch.set_num_threads(2)
+import fastdem_tpu_torch as ft
+from fastdem_tpu_torch.mapping.pipeline import create_map_state
+from fastdem_tpu_torch.parallel import sharding as sh
+from fastdem_tpu_torch.parallel.distributed import (
+    init_distributed, make_global_mesh, save_sharded_npz, shutdown)
+
+pid, port, path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+init_distributed(f"localhost:{port}", 2, pid)
+geom = ft.GridGeometry.from_length(16.0, 16.0, 0.5)
+state = create_map_state(geom, ft.Config(), device="cpu")
+rng = np.random.default_rng(11)
+state = state.replace_layer(
+    "elevation", torch.tensor(rng.normal(size=geom.shape).astype(np.float32)))
+sharded = sh.shard_state(state, make_global_mesh(n=8, devices=["cpu"]))
+if pid == 0:
+    # The disk fills partway through the zip: the third chunk written fails.
+    real, calls = zipfile._ZipWriteFile.write, [0]
+    def write(self, data):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise OSError(28, "No space left on device")
+        return real(self, data)
+    zipfile._ZipWriteFile.write = write
+ok = save_sharded_npz(path, geom, sharded, col_block=5)
+print(f"saved {ok}", flush=True)
+shutdown()
+sys.exit(0 if ok else 1)
+"""
+
+
+def test_two_process_write_failing_midway_fails_both(tmp_path):
+    path = str(tmp_path / "mh.npz")
+    results = run_two(lambda pid, port: [
+        sys.executable, "-c", MID_WRITE_FAILURE, str(pid), str(port), path,
+    ])
+    for rc, out in results:
+        assert rc == 1 and "saved False" in out, out[-3000:]
     assert not os.path.exists(path)
 
 

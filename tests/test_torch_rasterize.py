@@ -130,17 +130,16 @@ def test_rasterize_rows_matches_jax(rng, n, capacity, ties, mode):
     got = ras_t.rasterize_scatter_rows(
         gt, torch.tensor(pos), ct.xyz, ct.mask, torch.tensor(z_var),
         intensity=ct.channels["intensity"], color_packed=col_t,
-        with_voxel_count=True,
-        extra_min_scatter=(torch.tensor(e_ids), torch.tensor(e_vals), e_size),
-        voxel_count_mode=mode,
+        with_voxel_count=True, voxel_count_mode=mode,
     )
     assert got.touched.sum() > 500
     for name in ("touched", "voxel_count", "min_z", "max_z", "max_intensity", "color"):
         assert_bits_equal(getattr(ref, name), getattr(got, name), name)
-    # The port hands the extra table itself on; the reference's rider
-    # gathers from it.
-    assert tuple(got.extra.shape) == (e_size - 1,)
-    assert_bits_equal(ref.extra, (got.extra * 2.0)[torch.tensor(r_idx).long()], "extra")
+    # The port scatters the polar table apart from the rasterizer
+    # (``scatter_min_table``); the reference's rider gathers from it.
+    table = ras_t.scatter_min_table(torch.tensor(e_ids), torch.tensor(e_vals), e_size)
+    assert tuple(table.shape) == (e_size - 1,)
+    assert_bits_equal(ref.extra, (table * 2.0)[torch.tensor(r_idx).long()], "extra")
     np.testing.assert_allclose(
         got.min_z_var.numpy(), np.asarray(ref.min_z_var), rtol=1e-6, equal_nan=True
     )
