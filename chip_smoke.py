@@ -150,6 +150,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  then fills the bundle with warmup, its seconds and the
                  native g++ build's printed apart); the scaling report, strong and weak, as an
                  overhead probe of 4 blocks on one card.
+ 21. modes    -- the rasterizer's other formulations and the scan-batched
+                 replay step: 16 flagship scans each through
+                 build_integrate(scatter_mode=) packed, twophase (K1 and
+                 K4 once per scan) and sort (raycast off), card against
+                 CPU (phase 6's tolerances, decision layers equal; sort
+                 bit for bit), terrain check; the switch to packed on the
+                 200 m GLOBAL map with a 40 m range filter (a 924^2
+                 window), 8 scans card against CPU; the sharded fallback
+                 (blocks_fullmap) over packed on a 730^2 LOCAL map, 2x2
+                 mesh, bit for bit against the unsharded packed step; 64
+                 flagship scans through build_integrate_sequence
+                 (microbatch 1, 4, 16) and build_integrate_fused (K = 16)
+                 against the step loop (decision layers equal), K1 and K4
+                 once per batch; the batched K1 and K4 against their
+                 twins bit for bit at K = 4 and 16, their per-frame device
+                 ms; device events, device ms and wall ms per scan of each
+                 batch size, in alternating turns.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -258,6 +275,20 @@ IO_SCANS = 64
 SHARD_SCANS = 16
 RESUME_SCANS = 4
 SHARD_TURNS = 3
+# The rasterizer's other formulations and the scan-batched replay step
+# (phase 21): scans per mode, the switch session (a 40 m range filter on
+# the 200 m GLOBAL map: a 924^2 window), the LOCAL map of the sharded
+# fallback (730^2 cells, above 2^19), the batched replay.
+MODE_SCANS = 16
+SWITCH_SCANS = 8
+SWITCH_RANGE = 40.0
+SWITCH_SPREAD = 36.0
+SHARD_LOCAL_M = 73.0
+BATCH_SCANS = 64
+MICROBATCHES = (1, 4, 16)
+FUSED_K = 16
+BATCH_KERNEL_FRAMES = (4, 16)
+BATCH_TURNS = 2
 
 
 def terrain(x, y):
@@ -2085,6 +2116,255 @@ def phase_sharded(card):
     return l1 + s1_, l4 + s4_
 
 
+def mode_session(mode, dev, scans, T_bs, poses):
+    """The flagship scans through build_integrate(scatter_mode=mode) on
+    ``dev`` (sort with the raycast off): (state, the step)."""
+    cfg = flagship_config()
+    cfg.raycasting.enabled = mode != "sort"
+    geom = flagship_geom()
+    step = fd.build_integrate(geom, cfg, scatter_mode=mode, device=dev)
+    state = fd.create_map_state(geom, cfg, device=dev)
+    T_bs_d = torch.tensor(T_bs, device=dev)
+    mask = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
+    for k in range(len(poses)):
+        state, _ = step(state, torch.tensor(scans[k], device=dev), mask, T_bs_d,
+                        torch.tensor(poses[k], device=dev))
+    return state, step
+
+
+def check_decisions(what, cpu_state, gpu_state):
+    """The decision layers (n_points, ghost_removal, obstacle) equal, NaN
+    sets included."""
+    bad = {}
+    for name in ("n_points", "ghost_removal", "obstacle"):
+        if name not in cpu_state.layers:
+            continue
+        a = cpu_state.layers[name].cpu().numpy()
+        b = gpu_state.layers[name].cpu().numpy()
+        n = int((~((a == b) | (np.isnan(a) & np.isnan(b)))).sum())
+        if n:
+            bad[name] = n
+    print(f"{what}: decision layers card vs CPU, cells differing: {bad or 'none'}")
+    if bad:
+        raise AssertionError(f"{what}: decision layers differ {bad}")
+
+
+def phase_scatter_modes(card):
+    """Phase 21 a-c: packed, twophase and sort on the flagship, the switch
+    to packed on the 200 m GLOBAL map with a 40 m range filter, and the
+    sharded fallback over packed. Returns the K1 and K4 launches of these
+    main-path runs."""
+    from fastdem_tpu_torch.parallel import sharding as sh
+
+    geom = flagship_geom()
+    scans, T_bs, poses = make_session(MODE_SCANS, seed=31)
+    l1 = l4 = 0
+    for mode in ("packed", "twophase", "sort"):
+        torch.cuda.synchronize()
+        k1.launches = k4.launches = 0
+        gpu, step = mode_session(mode, "cuda", scans, T_bs, poses)
+        torch.cuda.synchronize()
+        n = 0 if mode == "sort" else MODE_SCANS
+        print(f"phase 21 {mode}: {MODE_SCANS} flagship scans on the card, step mode "
+              f"{step.scatter_mode}, K1 launches {k1.launches}, K4 launches {k4.launches}")
+        if step.scatter_mode != mode or (k1.launches, k4.launches) != (n, n):
+            raise AssertionError(f"phase 21 {mode}: mode or launches off")
+        l1, l4 = l1 + k1.launches, l4 + k4.launches
+        cpu, _ = mode_session(mode, "cpu", scans, T_bs, poses)
+        check_parity(f"phase 21 {mode}", cpu, gpu)
+        check_decisions(f"phase 21 {mode}", cpu, gpu)
+        if mode == "sort":
+            assert_bitwise("phase 21 sort (no raycast) card == CPU", cpu, SimpleNamespace(
+                layers={k: v.cpu() for k, v in gpu.layers.items()}, position=gpu.position))
+        check_map(f"phase 21 {mode}", geom, SimpleNamespace(state=gpu), "kalman", 17000)
+
+    # ---- b. the switch: the 200 m GLOBAL map, a 40 m range filter ----
+    ggeom = global_geom()
+    cfg = global_config()
+    cfg.point_filter.range_max = SWITCH_RANGE
+    gscans, gT_bs, gposes = make_session(SWITCH_SCANS, seed=37, spread=SWITCH_SPREAD,
+                                         start=(-12.0, 6.0), step=(1.7, -0.85))
+    gpu, s1, s4 = drive("phase 21 switch", "cuda", ggeom, cfg, gscans, gT_bs, gposes)
+    mode = gpu._step.scatter_mode
+    side = int(np.ceil(2 * (1.1 * SWITCH_RANGE + 2) / ggeom.resolution)) + 4
+    print(f"phase 21 switch: 200 m GLOBAL map, range filter {SWITCH_RANGE} m, a {side}^2 "
+          f"update window ({side * side} cells), step mode {mode}")
+    if mode != "packed":
+        raise AssertionError("phase 21: the step above 2^19 window cells is not packed")
+    check_map("phase 21 switch", ggeom, gpu, "kalman", 80000)
+    cpu, _ = run_session("cpu", ggeom, cfg, gscans, gT_bs, gposes)
+    check_parity("phase 21 switch", cpu.state, gpu.state)
+    check_decisions("phase 21 switch", cpu.state, gpu.state)
+    del cpu, gpu
+    l1, l4 = l1 + s1, l4 + s4
+
+    # ---- c. the sharded fallback over packed: a LOCAL map above 2^19 cells ----
+    lgeom = fd.GridGeometry.from_length(SHARD_LOCAL_M, SHARD_LOCAL_M, 0.1)
+    lcfg = flagship_config()
+    lscans, lT_bs, lposes = make_session(4, seed=41, spread=30.0, step=(0.73, -0.41))
+    dev = torch.device("cuda")
+    mask = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
+    T_bs_d = torch.tensor(lT_bs, device=dev)
+    step1 = fd.build_integrate(lgeom, lcfg, device="cuda")
+    mesh = sh.make_mesh(4, shape=(2, 2), devices=["cuda"])
+    stepN, shard = sh.build_sharded_integrate(lgeom, lcfg, mesh)
+    s1 = fd.create_map_state(lgeom, lcfg, device="cuda")
+    for k in range(4):
+        s1, _ = step1(s1, torch.tensor(lscans[k], device=dev), mask, T_bs_d,
+                      torch.tensor(lposes[k], device=dev))
+    torch.cuda.synchronize()
+    k1.launches = k4.launches = 0
+    sN = shard(fd.create_map_state(lgeom, lcfg, device="cuda"))
+    for k in range(4):
+        sN, _ = stepN(sN, torch.tensor(lscans[k], device=dev), mask, T_bs_d,
+                      torch.tensor(lposes[k], device=dev))
+    torch.cuda.synchronize()
+    print(f"phase 21 sharded fallback: LOCAL {lgeom.shape} map ({lgeom.num_cells} cells), "
+          f"2x2 mesh, formulation {stepN.formulation}, unsharded step mode "
+          f"{step1.scatter_mode}, K1 launches {k1.launches}, K4 launches {k4.launches}")
+    if stepN.formulation != "blocks_fullmap" or step1.scatter_mode != "packed":
+        raise AssertionError("phase 21: the fallback or the packed mode did not engage")
+    l1, l4 = l1 + k1.launches, l4 + k4.launches
+    assert_bitwise("phase 21 sharded fallback over packed == unsharded packed step", s1,
+                   sh.gather_state(sN))
+    return l1, l4
+
+
+def states_agree_loop(what, ref, got):
+    """The batched step against the loop: every decision layer equal; the
+    raycasting layer on all but max(1, cells / 1000) cells, each within
+    0.06 (the reference's rule, tests/test_replay.py); prints the bitwise
+    share."""
+    bitwise = True
+    for name, r in ref.layers.items():
+        a, b = r.cpu().numpy(), got.layers[name].cpu().numpy()
+        same = np.array_equal(a.view(np.int32), b.view(np.int32))
+        bitwise &= same
+        if name == "raycasting" and not same:
+            nan_mis = int((np.isnan(a) != np.isnan(b)).sum())
+            both = np.isfinite(a) & np.isfinite(b)
+            ndiff = int((a[both] != b[both]).sum())
+            maxd = float(np.abs(a[both] - b[both]).max()) if both.any() else 0.0
+            if nan_mis + ndiff > max(1, a.size // 1000) or maxd >= 0.06:
+                raise AssertionError(f"{what}: raycasting layer {nan_mis} / {ndiff} / {maxd}")
+        elif not same and not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f"{what}: layer {name} differs from the loop")
+    if not torch.equal(ref.position.cpu(), got.position.cpu()):
+        raise AssertionError(f"{what}: position differs from the loop")
+    print(f"{what} vs the step loop: decision layers equal, every layer bitwise {bitwise}")
+
+
+def phase_batched_replay(card):
+    """Phase 21 d-f: microbatch and fused against the loop, the batched K1
+    and K4 against their twins, and the cost per scan of each. Returns the
+    K1 and K4 launches of the batched main-path runs."""
+    from fastdem_tpu_torch.mapping.pipeline import build_integrate_fused
+
+    geom = flagship_geom()
+    cfg = flagship_config()
+    cfg.mapping.mode = fd.MappingMode.LOCAL
+    scans, T_bs, poses = make_session(BATCH_SCANS, seed=43)
+    dev = torch.device("cuda")
+    X = torch.tensor(np.asarray(scans), device=dev)
+    M = torch.ones((BATCH_SCANS, N_POINTS), dtype=torch.bool, device=dev)
+    TB = torch.tensor(T_bs, device=dev)
+    P = torch.tensor(np.stack(poses), device=dev)
+    runners = {
+        f"microbatch {m}": build_integrate_sequence(geom, cfg, microbatch=m, device="cuda")
+        for m in MICROBATCHES
+    }
+    runners[f"fused K={FUSED_K}"] = build_integrate_fused(geom, cfg, device="cuda")
+
+    def run(fn, n=BATCH_SCANS, call=FUSED_K):
+        state = fd.create_map_state(geom, cfg, device="cuda")
+        for lo in range(0, n, call):
+            state = fn(state, X[lo:lo + call], M[lo:lo + call], TB, P[lo:lo + call])
+        return state
+
+    step = fd.build_integrate(geom, cfg, device="cuda")
+    ref = fd.create_map_state(geom, cfg, device="cuda")
+    for k in range(BATCH_SCANS):
+        ref, _ = step(ref, X[k], M[k], TB, P[k])
+    l1 = l4 = 0
+    for what, fn in runners.items():
+        m = FUSED_K if what.startswith("fused") else int(what.split()[-1])
+        torch.cuda.synchronize()
+        k1.launches = k4.launches = 0
+        got = run(fn)
+        torch.cuda.synchronize()
+        want = BATCH_SCANS // m
+        print(f"phase 21 {what}: {BATCH_SCANS} flagship scans (LOCAL), K1 launches "
+              f"{k1.launches}, K4 launches {k4.launches} (one per batch of {m})")
+        if (k1.launches, k4.launches) != (want, want):
+            raise AssertionError(f"phase 21 {what}: want {want} K1 / K4 launches")
+        l1, l4 = l1 + k1.launches, l4 + k4.launches
+        states_agree_loop(f"phase 21 {what}", ref, got)
+    check_map("phase 21 batched", geom, SimpleNamespace(state=got), "kalman", 17000)
+
+    # ---- e. the batched K1 and K4 against their twins ----
+    rng = np.random.default_rng(47)
+    A, R, dr = raycast.polar_dims(geom, 2048, 0.25, 12.81)
+    win = raycast.column_windows(geom, 2048, 0.25, 12.81, dev)
+    lk = raycast.polar_lookup(geom, 2048, 0.25, 12.81)
+    timing = {}
+    for K in BATCH_KERNEL_FRAMES:
+        tbl = rng.uniform(-2.0, 0.5, (K, R, A)).astype(np.float32)
+        tbl[rng.random(tbl.shape) < 0.97] = np.inf
+        scat = torch.tensor(tbl, device=dev)
+        so = torch.tensor(np.column_stack([rng.uniform(-0.5, 0.5, (K, 2)),
+                                           rng.uniform(0.9, 1.1, K)]).astype(np.float32),
+                          device=dev)
+        pos = torch.tensor(rng.uniform(-0.2, 0.2, (K, 2)).astype(np.float32), device=dev)
+        got = k1.polar_field_cuda(scat, win, so, dr, 4, True)
+        ref1 = k1.polar_field_plain(scat, win, so, dr, 4, True)
+        torch.cuda.synchronize()
+        same1 = torch.equal(got.view(torch.int32), ref1.view(torch.int32))
+        h, t = k4.resample_lookup_cuda(got, lk, pos, so)
+        h_ref, t_ref = k4.resample_lookup_plain(got, lk, pos, so)
+        torch.cuda.synchronize()
+        same4 = torch.equal(h.view(torch.int32), h_ref.view(torch.int32)) and torch.equal(t, t_ref)
+        print(f"phase 21 batched K1 [{K}, {R}, {A}] == twin bitwise {same1}; batched K4 "
+              f"{K} x {geom.num_cells} cells == twin bitwise {same4} ({int(t.sum())} touched)")
+        if not (same1 and same4 and int(t.sum()) > 0):
+            raise AssertionError(f"phase 21: the batched K1 / K4 differ from their twins (K={K})")
+        ms1, plain1, _ = time_pair(
+            f"phase 21 batched K1, K={K}",
+            lambda: k1.polar_field_cuda(scat, win, so, dr, 4, True),
+            lambda: k1.polar_field_plain(scat, win, so, dr, 4, True), reps=50, plain_reps=5)
+        ms4, plain4, _ = time_pair(
+            f"phase 21 batched K4, K={K}",
+            lambda: k4.resample_lookup_cuda(got, lk, pos, so),
+            lambda: k4.resample_lookup_plain(got, lk, pos, so), reps=50, plain_reps=5)
+        timing[K] = (ms1 / K, ms4 / K)
+        b1, by1 = k1_bound(R, A, 4, win, True)
+        b4, by4 = k4_lookup_bound(geom.num_cells, 1)
+        print(f"phase 21 K={K}: K1 {ms1 / K!r} ms per frame (bound {b1!r} ms, {by1}; plain "
+              f"{plain1 / K!r}), K4 {ms4 / K!r} ms per frame (bound {b4!r} ms, {by4}; plain "
+              f"{plain4 / K!r}) on {card}")
+    print(f"phase 21 per-frame ms (K1, K4) by batch size: {timing!r} on {card}")
+
+    # ---- f. events, device ms and wall ms per scan, in alternating turns ----
+    for what, fn in runners.items():
+        fn_one = (lambda fn=fn: run(fn, n=FUSED_K))
+        ms, events, _ = device_profile(fn_one, 1)
+        print(f"phase 21 {what}: {events / FUSED_K!r} device events per scan, "
+              f"{ms / FUSED_K!r} device ms per scan (torch.profiler over {FUSED_K} scans) "
+              f"on {card}")
+    walls = {what: [] for what in runners}
+    order = list(runners)
+    for turn in range(BATCH_TURNS):
+        for what in (order if turn % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(runners[what])
+            torch.cuda.synchronize()
+            walls[what].append((time.perf_counter() - t0) * 1e3 / BATCH_SCANS)
+    for what, ms in walls.items():
+        print(f"phase 21 {what}: wall ms/scan over {BATCH_SCANS} scans, {BATCH_TURNS} "
+              f"alternating turns: {ms!r} on {card}")
+    return l1, l4
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -2210,6 +2490,13 @@ def main() -> int:
     t0 = time.perf_counter()
     add_launches(*phase_sharded(card))
     print(f"phase 20: {time.perf_counter() - t0!r} s")
+
+    # ---- 21. packed / twophase / sort, the switch to packed, the batched
+    # replay step ----
+    t0 = time.perf_counter()
+    add_launches(*phase_scatter_modes(card))
+    add_launches(*phase_batched_replay(card))
+    print(f"phase 21: {time.perf_counter() - t0!r} s")
 
     k1_main = k1_ms["flagship"]
     k4_main = k4_ms["global"]

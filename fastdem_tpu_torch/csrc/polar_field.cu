@@ -65,6 +65,11 @@
 //
 // z0 is read from device memory (sensor_origin[2]), so a launch needs no
 // host sync and stays capturable in a CUDA graph.
+//
+// A batch of K fields [K, R, A] (the scan-batched replay step's K scans,
+// each with its own sensor height z0[k * z0_stride]) is one launch of each
+// kernel: the frame is blockIdx.y, so each block's work is unchanged and
+// K = 1 is the single-field launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -88,9 +93,13 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 
 __global__ void __launch_bounds__(kColumnThreads)
 polar_column_kernel(const float* __restrict__ scat,
-                    const float* __restrict__ z0_ptr, float dr, int R, int A,
-                    int nfold, int chunk_rows, float* __restrict__ out) {
+                    const float* __restrict__ z0_ptr, int z0_stride, float dr,
+                    int R, int A, int nfold, int chunk_rows,
+                    float* __restrict__ out) {
   extern __shared__ float smem[];
+  const size_t frame = (size_t)blockIdx.y * R * A;
+  scat += frame;
+  out += frame;
   const int halo = nfold - 1;
   float* strip = smem;                                  // [chunk + halo][kStrip]
   float* below = strip + (chunk_rows + halo) * kStrip;  // [kStrip][kSegments + 1]
@@ -100,7 +109,7 @@ polar_column_kernel(const float* __restrict__ scat,
   const int s = threadIdx.x / kStrip;
   const int a_base = blockIdx.x * kStrip;
   const int a = a_base + c;
-  const float z0 = *z0_ptr;
+  const float z0 = z0_ptr[(size_t)blockIdx.y * z0_stride];
   if (threadIdx.x < kStrip) carry[threadIdx.x] = INFINITY;
 
   int buf = 0;
@@ -198,7 +207,7 @@ polar_row_kernel(float* __restrict__ field, const int* __restrict__ lvl,
   extern __shared__ float smem[];
   float* cur = smem;
   float* nxt = smem + A;
-  float* row = field + (size_t)blockIdx.x * A;
+  float* row = field + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * A;
 
 #pragma unroll 4
   for (int a = threadIdx.x; a < A; a += kRowThreads) cur[a] = row[a];
@@ -242,13 +251,15 @@ const char* fastdem_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches K1 on `stream`; returns the cudaError_t of the launches (0 = ok).
-// All pointers are device pointers; nothing is allocated or synchronised.
+// Launches K1 on `stream` over `frames` contiguous [R, A] fields; returns
+// the cudaError_t of the launches (0 = ok). All pointers are device
+// pointers; nothing is allocated or synchronised.
 int fastdem_polar_field(const float* scat, const int* lvl, const int* shift,
-                        const float* z0, float dr, int R, int A,
-                        int nfold, int exact_window, float* out,
+                        const float* z0, int z0_stride, int frames, float dr,
+                        int R, int A, int nfold, int exact_window, float* out,
                         void* stream) {
-  if (R <= 0 || A <= 0 || nfold < 1 || nfold > kNfoldMax) {
+  if (R <= 0 || A <= 0 || nfold < 1 || nfold > kNfoldMax || frames <= 0 ||
+      frames > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -260,16 +271,17 @@ int fastdem_polar_field(const float* scat, const int* lvl, const int* shift,
   size_t smem = fixed + static_cast<size_t>(chunk_rows + halo) * kStrip * sizeof(float);
   cudaError_t err = set_smem(reinterpret_cast<const void*>(polar_column_kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  polar_column_kernel<<<(A + kStrip - 1) / kStrip, kColumnThreads, smem, st>>>(
-      scat, z0, dr, R, A, nfold, chunk_rows, out);
+  const dim3 column_grid((A + kStrip - 1) / kStrip, frames);
+  polar_column_kernel<<<column_grid, kColumnThreads, smem, st>>>(
+      scat, z0, z0_stride, dr, R, A, nfold, chunk_rows, out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   smem = 2 * static_cast<size_t>(A) * sizeof(float);
   err = set_smem(reinterpret_cast<const void*>(polar_row_kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  polar_row_kernel<<<R, kRowThreads, smem, st>>>(out, lvl, shift, A,
-                                                 exact_window);
+  polar_row_kernel<<<dim3(R, frames), kRowThreads, smem, st>>>(
+      out, lvl, shift, A, exact_window);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -42,6 +42,11 @@
 // operations per cell (two atan2f among them) take less at 67 TFLOP/s.
 // One thread per cell, the field reads scattered but L2-resident (K1 has
 // just written the 4.2-7.9 MB field), the outputs coalesced.
+//
+// A batch of K frames (the scan-batched replay step's K scans: fields
+// [K, R, A], one map position, sensor origin and window offset per frame)
+// is one launch: the frame is blockIdx.y, and K = 1 is the single-frame
+// launch.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -124,15 +129,22 @@ __global__ void lookup_kernel(const float* __restrict__ field,
                               const float* __restrict__ position,
                               const float* __restrict__ sensor_origin,
                               int pos_stride, int so_stride,
+                              int pos_frame_stride, int so_frame_stride,
                               const int* __restrict__ r0_ptr,
                               const int* __restrict__ c0_ptr, FastdemLookup p,
                               float* __restrict__ ray_min,
                               uint8_t* __restrict__ touched) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.wr * p.wc) return;
+  const int f = blockIdx.y;
+  field += (size_t)f * p.R * p.A;
+  position += (size_t)f * pos_frame_stride;
+  sensor_origin += (size_t)f * so_frame_stride;
+  ray_min += (size_t)f * p.wr * p.wc;
+  touched += (size_t)f * p.wr * p.wc;
   const int wi = i / p.wc;
-  const int row = (r0_ptr != nullptr ? __ldg(r0_ptr) : 0) + wi;
-  const int col = (c0_ptr != nullptr ? __ldg(c0_ptr) : 0) + (i - wi * p.wc);
+  const int row = (r0_ptr != nullptr ? __ldg(r0_ptr + f) : 0) + wi;
+  const int col = (c0_ptr != nullptr ? __ldg(c0_ptr + f) : 0) + (i - wi * p.wc);
 
   // Cell centre o - (i + 0.5) * res, one fused multiply-add.
   const float ox = __fadd_rn(__ldg(position), p.half_x);
@@ -179,25 +191,28 @@ const char* fastdem_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches the main path's K4, the lookup with its index math, on `stream`.
-// `p` is a host struct; position f32[2], sensor_origin f32[3] (each with its
-// element stride) and r0 / c0 (int32 scalars, both null for the whole map)
-// are device pointers.
+// Launches the main path's K4, the lookup with its index math, on `stream`
+// over `frames` frames. `p` is a host struct; the fields [frames, R, A]
+// (contiguous), position f32[frames, 2] and sensor_origin f32[frames, 3]
+// (each with its element and frame strides), r0 / c0 (int32[frames], both
+// null for the whole map) and the outputs [frames, wr, wc] are device
+// pointers.
 int fastdem_resample_lookup(const float* field, const float* position,
                             const float* sensor_origin, int pos_stride,
-                            int so_stride, const int* r0,
+                            int so_stride, int pos_frame_stride,
+                            int so_frame_stride, int frames, const int* r0,
                             const int* c0, const FastdemLookup* p,
                             float* ray_min, uint8_t* touched, void* stream) {
-  if (p->R <= 0 || p->A <= 0 || p->wr <= 0 || p->wc <= 0 ||
-      (r0 == nullptr) != (c0 == nullptr)) {
+  if (p->R <= 0 || p->A <= 0 || p->wr <= 0 || p->wc <= 0 || frames <= 0 ||
+      frames > 65535 || (r0 == nullptr) != (c0 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long n = static_cast<long long>(p->wr) * p->wc;
   if (n > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = static_cast<int>((n + kThreads - 1) / kThreads);
-  lookup_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      field, position, sensor_origin, pos_stride, so_stride, r0, c0, *p,
-      ray_min, touched);
+  const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads), frames);
+  lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      field, position, sensor_origin, pos_stride, so_stride, pos_frame_stride,
+      so_frame_stride, r0, c0, *p, ray_min, touched);
   return static_cast<int>(cudaGetLastError());
 }
 

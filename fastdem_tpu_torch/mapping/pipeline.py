@@ -1,6 +1,7 @@
 """The FastDEM pipeline: preprocess -> map update -> estimate -> raycast
 (port of ``fastdem_tpu/mapping/pipeline.py``: LOCAL and GLOBAL maps, full
-or windowed, with the Kalman or the P^2 estimator).
+or windowed, with the Kalman or the P^2 estimator, in any of the
+reference's four rasterizer formulations).
 
 ``build_integrate(geom, cfg, device=...)`` returns the per-scan step
 
@@ -16,9 +17,17 @@ raycast visibility update.
 
 ``build_integrate_sequence`` is batched replay: K stacked scans through
 the same step in one call, with no host read between them, so its map
-equals the per-scan loop's bit for bit. ``FastDEM.integrate_sequence``
-takes a list of clouds and runs ``FastDEM.integrate`` on each, so every
-scan keeps its own capacity.
+equals the per-scan loop's bit for bit. With ``microbatch=m`` (and in
+``build_integrate_fused``, m = K) phase A runs over m scans at once: one
+row scatter, one K1 launch and one K4 launch for the m scans; phase B
+stays a loop over frames. ``FastDEM.integrate_sequence`` takes a list of
+clouds and runs ``FastDEM.integrate`` on each, so every scan keeps its own
+capacity.
+
+``scatter_mode`` picks the rasterizer: "rows" (the default), "packed",
+"twophase" or "sort" (``mapping/rasterize.py``). As in the reference,
+rows becomes packed above 2^19 update cells (the window's cells when the
+windowed update is on, else the map's).
 
 On maps larger than the scan's reach, the rasterizer's tables and the
 whole map update run on a sensor-centred window of the map and are
@@ -27,9 +36,6 @@ device, so no step reads it back to the host.
 
 ``build_integrate(spmd_blocks=(mx, my))`` is the step of one block of a
 map split into blocks (``parallel.sharding`` runs a mesh of them).
-
-Configurations the port does not run yet raise ``NotImplementedError``
-naming their ROADMAP item; none falls back to another computation.
 """
 
 from __future__ import annotations
@@ -59,12 +65,6 @@ from fastdem_tpu_torch.sensors.models import create_sensor_model
 from fastdem_tpu_torch.utils.colors import pack_rgb
 
 log = logging.getLogger("fastdem_tpu_torch")
-
-
-def _not_ported(what: str, where: str):
-    return NotImplementedError(
-        f"{what} is not ported to fastdem_tpu_torch yet (ROADMAP {where})"
-    )
 
 
 def _check_config(cfg: Config) -> None:
@@ -270,7 +270,9 @@ def build_integrate(
     "auto" runs K1 on CUDA and its plain twin on the CPU, "pallas" is K1
     only and "xla" the plain twin only. ``window_update`` None engages the
     windowed update where the window is at most half the map, False keeps
-    the full-map update.
+    the full-map update. The step's ``scatter_mode`` attribute names the
+    rasterizer that runs: as in the reference, rows becomes packed above
+    2^19 update cells.
 
     ``spmd_blocks``: (mx, my) -- build the step of ONE block of a map split
     into mx x my blocks of [rows/mx, cols/my] cells. The step then takes
@@ -307,6 +309,7 @@ def build_integrate(
             )
             return state, aux
 
+        integrate_block.scatter_mode = ph.scatter_mode
         return integrate_block
 
     def integrate(state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
@@ -331,6 +334,7 @@ def build_integrate(
         )
         return state, aux
 
+    integrate.scatter_mode = ph.scatter_mode
     return integrate
 
 
@@ -351,12 +355,14 @@ class SharedScan:
     # (r0, c0, wr, wc) of the ray window of a full-map update, when the
     # ray reaches less than the map.
     ray_window: Optional[tuple] = None
-    # The polar ray field [R, A] (K1's output), or the sampled raycast's
-    # full-map (ray_min, touched).
+    # The polar slope scatter's (keys, slopes, table size), then the ray
+    # field [R, A] (K1's output); or the sampled raycast's full-map
+    # (ray_min, touched).
+    polar: Optional[tuple] = None
     field: Optional[torch.Tensor] = None
     ray_full: Optional[tuple] = None
-    # (zlo, zhi) of the unsharded rasterizer's points (blocks only).
-    z_bounds: Optional[tuple] = None
+    # The unsharded rasterizer's view of the scan (blocks only).
+    scope: Optional[raster.UnshardedScan] = None
 
 
 @dataclasses.dataclass
@@ -377,6 +383,11 @@ class _Phases:
     block: object  # (SharedScan, position, intensity, color, block=None) -> BlockScan
     update: object  # (state, frame_nonempty, BlockScan) -> state; no move
     moved_position: object
+    scatter_mode: str  # the rasterizer that runs (after the switch to packed)
+    # (positions [K, 2], xyz [K, N, 3], mask, T_bs, T_wb [K, 4, 4],
+    # intensity, color) -> [BlockScan] * K: phase A of K scans at once;
+    # None where the configuration has none (see _build_phases).
+    batched: object = None
 
 
 def _build_phases(
@@ -406,6 +417,10 @@ def _build_phases(
     by default the windowed blocks of ``build_integrate(spmd_blocks=...)``;
     with ``full_blocks`` each block updates all of itself (the full-map
     update, any mode), for ``parallel.sharding``'s fallback.
+
+    ``batched`` is phase A of K scans at once, for the full-map update in
+    rows mode with the polar raycast or none (the reference's
+    ``phase_a_batched``); None otherwise.
     """
     _check_config(cfg)
     if voxel_count_mode is None:
@@ -420,11 +435,10 @@ def _build_phases(
         ray_range_explicit = True
     if scatter_mode not in ("rows", "packed", "twophase", "sort"):
         raise ValueError(f"unknown scatter_mode: {scatter_mode!r}")
-    if scatter_mode != "rows":
-        raise _not_ported(
-            f"scatter_mode={scatter_mode!r}",
-            "section 1, the scatter-mode note after item 19",
-        )
+    if voxel_count_mode == "span" and scatter_mode == "twophase":
+        raise ValueError('voxel_count_mode="span" needs rows/packed mode')
+    if scatter_mode == "sort" and cfg.raycasting.enabled:
+        raise ValueError('scatter_mode="sort" requires raycasting disabled')
     sensor = create_sensor_model(cfg.sensor_model)
     pf = cfg.point_filter
     local_mode = cfg.mapping.mode == MappingMode.LOCAL
@@ -459,11 +473,12 @@ def _build_phases(
     else:
         upd_wr, upd_wc = geom.rows, geom.cols
     # The sampled raycast scatters into the full map: it turns the window
-    # off, as in the reference.
+    # off, as in the reference; so do the twophase and sort rasterizers.
     sampled = cfg.raycasting.enabled and cfg.raycasting.method == "sampled"
     windowed = (
         window_update is not False
         and not full_blocks
+        and scatter_mode in ("rows", "packed")
         and 2 * upd_wr * upd_wc <= geom.num_cells
         and not sampled
     )
@@ -493,9 +508,28 @@ def _build_phases(
         block_shape = (geom.rows // smx, geom.cols // smy)
         upd_wr = min(upd_wr_g, block_shape[0])
         upd_wc = min(upd_wc_g, block_shape[1])
-    # Rows mode at any size: the reference switches to a packed rasterizer
-    # above 2^19 cells only because the TPU pads the row table to 128
-    # lanes; the card does not (4M cells x 4 lanes is ~64 MB).
+    # Which rasterizer runs: the reference turns rows into packed above
+    # 2^19 update cells (its TPU pads the row table to 128 lanes), and the
+    # port follows it, since the two differ at near-ties (packed's min_z
+    # is the argmin point's). The update area is the window's (clamped
+    # onto the block for windowed blocks) or the whole map's: full blocks
+    # stand for the unsharded step, which updates the whole map.
+    eff_cells = upd_wr * upd_wc if windowed else geom.num_cells
+    if scatter_mode == "rows" and eff_cells > (1 << 19):
+        scatter_mode = "packed"
+    raster_fn = {
+        "rows": raster.rasterize_scatter_rows,
+        "packed": raster.rasterize_scatter_packed,
+        "twophase": raster.rasterize_scatter,
+        "sort": raster.rasterize,
+    }[scatter_mode]
+    scoped = scatter_mode != "sort"  # the sorted runs need no scope
+    raster_kw = (
+        {"voxel_count_mode": voxel_count_mode} if scatter_mode in ("rows", "packed") else {}
+    )
+    # The cells of the unsharded rasterizer (blocks only): they pick the
+    # voxel count's path.
+    scope_cells = upd_wr_g * upd_wc_g if windowed else geom.num_cells
     if cfg.raycasting.enabled and not sampled:
         # The per-cell lookups scale with the map: on maps larger than the
         # ray range, only a sensor-centred window is resampled (the update
@@ -533,7 +567,8 @@ def _build_phases(
         c0 = torch.clamp(torch.clamp(sc, 0, geom.cols) - wc // 2, 0, geom.cols - wc)
         return r0, c0
 
-    def shared(position, xyz, mask, T_bs, T_wb):
+    def prep(position, xyz, mask, T_bs, T_wb):
+        """``shared`` up to the polar slope scatter's inputs (no K1)."""
         # ---- 1. Preprocess ----
         T_ws = T_wb @ T_bs
         r3 = T_ws[2, :3]  # third row of the sensor->world rotation
@@ -566,13 +601,16 @@ def _build_phases(
             )
             out.oow_points = torch.sum(keep & in_map & ~out.in_gwin).to(torch.int32)
         if block_shape is not None:
-            # Blocks quantize z over the unsharded rasterizer's points.
+            # Blocks quantize z over the unsharded rasterizer's points and
+            # count voxels as it does.
             gwin = (*out.gwin, upd_wr_g, upd_wc_g) if windowed else None
             _, valid, _, _ = raster._window_ids(geom, position, xyz_world, keep, gwin)
-            out.z_bounds = raster.z_range_of(xyz_world[:, 2], valid)
+            out.scope = raster.UnshardedScan(
+                raster.z_range_of(xyz_world[:, 2], valid), valid, scope_cells
+            )
 
-        # ---- 3. The raycast: the polar slope scatter and the ray field
-        # (K1), or the sampled rays ----
+        # ---- 3. The raycast: the polar slope scatter's inputs, or the
+        # sampled rays ----
         if sampled:
             # Exactness first: every ray sampled S times and scatter-minned
             # into the full map; no K1 / K4.
@@ -582,20 +620,30 @@ def _build_phases(
             )
         elif cfg.raycasting.enabled:
             origin_inside = geom.is_inside(position, sensor_origin[:2])
-            table = raster.scatter_min_table(*raycast.polar_scatter_spec(
+            out.polar = raycast.polar_scatter_spec(
                 geom, position, xyz_world, keep & origin_inside,
                 sensor_origin, ray_num_azimuth, ray_range_bin_factor,
                 ray_max_range,
-            ))
-            out.field = raycast.polar_smeared_field(
-                geom, sensor_origin, table,
-                ray_num_azimuth, ray_range_bin_factor, ray_max_range,
-                exact_window=ray_exact_window, impl=impl, windows=windows,
             )
             if not windowed and (ray_wr, ray_wc) != geom.shape:
                 out.ray_window = (
                     *window_at(position, sensor_origin, ray_wr, ray_wc), ray_wr, ray_wc
                 )
+        return out
+
+    def field_of(polar, sensor_origin):
+        """The polar ray fields (K1) from the slope scatter's inputs: one
+        scan's [R, A], or K scans' [K, R, A] in one launch."""
+        return raycast.polar_smeared_field(
+            geom, sensor_origin, raster.scatter_min_table(*polar),
+            ray_num_azimuth, ray_range_bin_factor, ray_max_range,
+            exact_window=ray_exact_window, impl=impl, windows=windows,
+        )
+
+    def shared(position, xyz, mask, T_bs, T_wb):
+        out = prep(position, xyz, mask, T_bs, T_wb)
+        if out.polar is not None:
+            out.field = field_of(out.polar, out.sensor_origin)
         return out
 
     def block(sh, position, intensity=None, color_packed=None, block=None):
@@ -628,7 +676,8 @@ def _build_phases(
                 host_cells = (bi * block_shape[0], bj * block_shape[1], *block_shape)
             cells = upd_window
 
-        obs = raster.rasterize_scatter_rows(
+        kw = dict(raster_kw, scope=sh.scope) if scoped else raster_kw
+        obs = raster_fn(
             geom,
             position,
             sh.xyz_world,
@@ -637,9 +686,8 @@ def _build_phases(
             intensity=intensity,
             color_packed=color_packed,
             with_voxel_count=cfg.raycasting.enabled,
-            voxel_count_mode=voxel_count_mode,
             window=upd_window,
-            z_bounds=sh.z_bounds,
+            **kw,
         )
 
         # ---- 4. The per-cell lookup of the field with the index math
@@ -678,6 +726,61 @@ def _build_phases(
                     ray_touched = ray_touched & inside
             ray = (ray_min, ray_touched)
         return BlockScan(obs=obs, ray=ray, sensor_origin=sh.sensor_origin, store=store)
+
+    def batched(positions, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
+        """Phase A of K scans: each scan's preprocessing as the step runs
+        it, then one row scatter for the K rasterizations, one scatter of
+        the K polar slope tables, one K1 launch for the K fields
+        [K, R, A] and one K4 launch for the K lookups. Each scan's
+        BlockScan equals the one-scan phase A's bit for bit."""
+        K = xyz.shape[0]
+        static_tbs = T_bs.dim() == 2
+        shs = [
+            prep(positions[k], xyz[k], mask[k], T_bs if static_tbs else T_bs[k], T_wb[k])
+            for k in range(K)
+        ]
+        sensor_origin = torch.stack([sh.sensor_origin for sh in shs])
+        obs = raster.rasterize_scatter_rows_batched(
+            geom, positions,
+            torch.stack([sh.xyz_world for sh in shs]),
+            torch.stack([sh.keep for sh in shs]),
+            torch.stack([sh.z_var for sh in shs]),
+            intensity=intensity,
+            color_packed=color_packed,
+            with_voxel_count=cfg.raycasting.enabled,
+            voxel_count_mode=voxel_count_mode,
+        )
+        rays = [None] * K
+        if cfg.raycasting.enabled:
+            polar = (
+                torch.stack([sh.polar[0] for sh in shs]),
+                torch.stack([sh.polar[1] for sh in shs]),
+                shs[0].polar[2],
+            )
+            field = field_of(polar, sensor_origin)
+            window = None
+            if shs[0].ray_window is not None:
+                window = (
+                    torch.stack([sh.ray_window[0] for sh in shs]),
+                    torch.stack([sh.ray_window[1] for sh in shs]),
+                    ray_wr, ray_wc,
+                )
+            ray_min, ray_touched = k4.resample_lookup(
+                field, lookup, positions, sensor_origin, window=window,
+                two_reads=not ray_exact_window,
+            )
+            for k, sh in enumerate(shs):
+                rays[k] = (ray_min[k], ray_touched[k])
+                if window is not None:
+                    # The full-map update takes full-map fields.
+                    win = _Window(*sh.ray_window)
+                    rays[k] = (win.expand(geom, rays[k][0], np.nan),
+                               win.expand(geom, rays[k][1], False))
+        return [
+            BlockScan(obs=raster.frame_of(obs, k), ray=rays[k],
+                      sensor_origin=sensor_origin[k], store=None)
+            for k in range(K)
+        ]
 
     def update_layers(state, obs, ray, sensor_origin, frame_nonempty):
         """The map update on a state whose layer shapes match ``obs``."""
@@ -723,7 +826,80 @@ def _build_phases(
             new_layers[k] = win.write_(base, vstate.layers[k])
         return GridMapState(layers=new_layers, position=state.position)
 
-    return _Phases(shared=shared, block=block, update=update, moved_position=moved_position)
+    # The reference batches phase A only in rows mode on the full map with
+    # the polar raycast or none.
+    has_batched = scatter_mode == "rows" and not windowed and not sampled and (
+        block_shape is None
+    )
+    return _Phases(shared=shared, block=block, update=update, moved_position=moved_position,
+                   scatter_mode=scatter_mode, batched=batched if has_batched else None)
+
+
+def _phases_of(geom, cfg, device, step_kwargs, **pinned):
+    """``_build_phases`` from ``build_integrate``'s keyword arguments (an
+    unknown one raises TypeError), with ``pinned`` ones overriding them."""
+    kw = dict(step_kwargs, **pinned)
+    positional = [
+        kw.pop(name, default) for name, default in (
+            ("ray_num_azimuth", None), ("ray_range_bin_factor", None),
+            ("ray_max_range", None), ("scatter_mode", "rows"),
+            ("voxel_count_mode", None), ("ray_exact_window", True),
+        )
+    ]
+    return _build_phases(geom, cfg, *positional, device=resolve_device(device), **kw)
+
+
+def _replay_in_chunks(geom: GridGeometry, cfg: Config, ph: _Phases, chunk: Optional[int]):
+    """K stacked scans, phase A ``chunk`` scans at a time (all K when
+    ``chunk`` is None) through ``ph.batched`` (or scan by scan where the
+    configuration has none), phase B frame by frame. LOCAL maps take each
+    scan's post-move position from the pose-only lattice walk, on the
+    device: no host read between the scans."""
+    local_mode = cfg.mapping.mode == MappingMode.LOCAL
+
+    def phase_a(positions, xyz, mask, T_bs, T_wb, intensity, color_packed):
+        if ph.batched is not None:
+            return ph.batched(positions, xyz, mask, T_bs, T_wb, intensity, color_packed)
+        static_tbs = T_bs.dim() == 2
+        return [
+            ph.block(
+                ph.shared(positions[k], xyz[k], mask[k], T_bs if static_tbs else T_bs[k],
+                          T_wb[k]),
+                positions[k],
+                None if intensity is None else intensity[k],
+                None if color_packed is None else color_packed[k],
+            )
+            for k in range(xyz.shape[0])
+        ]
+
+    def replay(state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
+        K = xyz.shape[0]
+        m = K if chunk is None else chunk
+        if K % m:
+            raise ValueError(
+                f"K={K} frames not a multiple of microbatch={m}; pad with empty "
+                "frames (see build_integrate_sequence)"
+            )
+        static_tbs = T_bs.dim() == 2
+        for c0 in range(0, K, m):
+            sl = slice(c0, c0 + m)
+            positions, p = [], state.position
+            for T in T_wb[sl]:
+                if local_mode:
+                    p = ph.moved_position(p, T[:2, 3])
+                positions.append(p)
+            pas = phase_a(
+                torch.stack(positions), xyz[sl], mask[sl], T_bs if static_tbs else T_bs[sl],
+                T_wb[sl], None if intensity is None else intensity[sl],
+                None if color_packed is None else color_packed[sl],
+            )
+            for k, pa in enumerate(pas):
+                if local_mode:
+                    state = gridmap.move(geom, state, T_wb[c0 + k][:2, 3])
+                state = ph.update(state, torch.any(mask[c0 + k]), pa)
+        return state
+
+    return replay
 
 
 def build_integrate_sequence(
@@ -751,16 +927,30 @@ def build_integrate_sequence(
     frames replicate the previous pose with an all-False mask: an empty
     scan touches no cell and a repeated pose makes the LOCAL move a no-op.
 
-    The reference's ``microbatch > 1`` (the irregular ops of several scans
-    flattened into one program) answers a TPU dispatch cost and is not
-    ported: it raises.
+    ``microbatch`` = m > 1: phase A runs over m consecutive scans at once
+    (``_Phases.batched``: one row scatter, one K1 launch for the m fields,
+    one K4 launch for the m lookups), phase B stays a loop over frames. K
+    must be a multiple of m (ValueError otherwise, at the call). As in the
+    reference the windowed update is off, m * (num_cells + 1) may not pass
+    2^21 (ValueError), and a configuration without a batched phase A (not
+    rows mode, or the sampled raycast) runs with m = 1 and a warning. The
+    map equals the one-scan loop's on every layer.
     """
     if microbatch < 1:
         raise ValueError("microbatch must be >= 1")
     if microbatch > 1:
-        raise _not_ported(
-            "build_integrate_sequence(microbatch > 1)",
-            "section 1, the do-not-port list",
+        ph = _phases_of(geom, cfg, device, step_kwargs, window_update=False)
+        if microbatch * (geom.num_cells + 1) > (1 << 21):
+            raise ValueError(
+                f"microbatch={microbatch} over {geom.num_cells} cells would build a "
+                "scatter table past the reference's budget of 2^21 rows; reduce "
+                "microbatch or the map size"
+            )
+        if ph.batched is not None:
+            return _replay_in_chunks(geom, cfg, ph, microbatch)
+        log.warning(
+            "microbatch=%d needs the 'rows' scatter path (without the sampled "
+            "raycast method); running phase A scan by scan.", microbatch,
         )
     step = build_integrate(
         geom, cfg, has_intensity, has_color, device=device, **step_kwargs
@@ -783,6 +973,35 @@ def build_integrate_sequence(
         return state
 
     return integrate_sequence
+
+
+def build_integrate_fused(
+    geom: GridGeometry,
+    cfg: Config,
+    has_intensity: bool = False,
+    has_color: bool = False,
+    ray_num_azimuth: Optional[int] = None,
+    ray_range_bin_factor: Optional[float] = None,
+    ray_max_range: Optional[float] = None,
+    ray_exact_window: bool = True,
+    scatter_mode: str = "rows",
+    voxel_count_mode: Optional[str] = None,
+    *,
+    device="cuda",
+):
+    """The K-fused replay step (the reference's ``build_integrate_fused``):
+    phase A of all K scans of a call as one batch, then phase B frame by
+    frame. Same signature and map as ``build_integrate_sequence``, with the
+    windowed update off. In rows mode phase A is ``_Phases.batched`` (one
+    row scatter, one K1 and one K4 launch for the K scans); in the other
+    modes, and with the sampled raycast, it runs scan by scan before the
+    first update."""
+    ph = _phases_of(geom, cfg, device, dict(
+        ray_num_azimuth=ray_num_azimuth, ray_range_bin_factor=ray_range_bin_factor,
+        ray_max_range=ray_max_range, ray_exact_window=ray_exact_window,
+        scatter_mode=scatter_mode, voxel_count_mode=voxel_count_mode,
+    ), window_update=False)
+    return _replay_in_chunks(geom, cfg, ph, None)
 
 
 class FastDEM:

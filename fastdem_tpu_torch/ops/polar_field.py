@@ -16,6 +16,10 @@ ops, mirroring the reference's XLA formulation -- for a CPU tensor. The
 kernel is built with nvcc from the repository's source at first use
 (``ops/cuda_build.py``); a build or launch failure raises. ``launches``
 counts kernel launches.
+
+A batch of K fields (``scat`` [K, R, A] with ``sensor_origin`` [K, 3], the
+scan-batched replay step) is one launch; each field equals the one-field
+call's bit for bit.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ def library():
         return _lib
     lib = cuda_build.load(SOURCE)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fastdem_polar_field.argtypes = [vp, vp, vp, vp, cf, ci, ci, ci, ci, vp, vp]
+    lib.fastdem_polar_field.argtypes = [vp, vp, vp, vp, ci, ci, cf, ci, ci, ci, ci, vp, vp]
     lib.fastdem_polar_field.restype = ci
     lib.fastdem_polar_field_nfold_max.argtypes = []
     lib.fastdem_polar_field_nfold_max.restype = ci
@@ -80,11 +84,13 @@ def library():
 
 
 def _check_inputs(scat, windows, sensor_origin, nfold):
-    if scat.dtype != torch.float32 or scat.dim() != 2:
-        raise ValueError(f"scat must be f32[R, A], got {scat.dtype} {tuple(scat.shape)}")
+    if scat.dtype != torch.float32 or scat.dim() not in (2, 3):
+        raise ValueError(
+            f"scat must be f32[R, A] or f32[K, R, A], got {scat.dtype} {tuple(scat.shape)}"
+        )
     if not scat.is_contiguous():
         raise ValueError("scat must be contiguous")
-    R = scat.shape[0]
+    R = scat.shape[-2]
     for name, t in (("lvl", windows.lvl), ("shift", windows.shift)):
         if t.dtype != torch.int32 or tuple(t.shape) != (R,) or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32[{R}]")
@@ -92,10 +98,12 @@ def _check_inputs(scat, windows, sensor_origin, nfold):
             raise ValueError(f"{name} is on {t.device}, scat on {scat.device}")
     if (
         sensor_origin.dtype != torch.float32
-        or tuple(sensor_origin.shape) != (3,)
+        or tuple(sensor_origin.shape) != tuple(scat.shape[:-2]) + (3,)
         or sensor_origin.device != scat.device
     ):
-        raise ValueError("sensor_origin must be f32[3] on the field's device")
+        raise ValueError(
+            "sensor_origin must be f32[3] (f32[K, 3] for K fields) on the field's device"
+        )
     if not 1 <= nfold <= NFOLD_MAX:
         raise ValueError(f"nfold {nfold} outside the kernel's range 1..{NFOLD_MAX}")
 
@@ -108,22 +116,26 @@ def polar_field_cuda(
     nfold: int,
     exact_window: bool,
 ) -> torch.Tensor:
-    """Launch K1 on the current stream. ``scat`` f32[R, A] on a CUDA device."""
+    """Launch K1 on the current stream. ``scat`` f32[R, A] (or [K, R, A])
+    on a CUDA device."""
     global launches
     if scat.device.type != "cuda":
         raise ValueError(f"K1 needs a CUDA tensor, got one on {scat.device}")
     _check_inputs(scat, windows, sensor_origin, nfold)
     lib = library()
-    R, A = scat.shape
+    R, A = scat.shape[-2:]
+    frames = scat[..., 0, 0].numel()
     out = torch.empty_like(scat)
-    # A one-element view of the sensor height: the kernel reads z0 there.
-    z0 = sensor_origin[2:3]
+    # The sensor heights: the kernel reads frame k's z0 at k * stride.
+    z0 = sensor_origin[..., 2:3]
     stream = torch.cuda.current_stream(scat.device).cuda_stream
     err = lib.fastdem_polar_field(
         ctypes.c_void_p(scat.data_ptr()),
         ctypes.c_void_p(windows.lvl.data_ptr()),
         ctypes.c_void_p(windows.shift.data_ptr()),
         ctypes.c_void_p(z0.data_ptr()),
+        ctypes.c_int(sensor_origin.stride(0) if scat.dim() == 3 else 0),
+        ctypes.c_int(frames),
         ctypes.c_float(dr),
         ctypes.c_int(R),
         ctypes.c_int(A),
@@ -149,7 +161,13 @@ def polar_field_plain(
     nfold: int,
     exact_window: bool,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K1 (the reference's XLA formulation)."""
+    """Plain PyTorch version of K1 (the reference's XLA formulation); a
+    batch [K, R, A] field by field."""
+    if scat.dim() == 3:
+        return torch.stack([
+            polar_field_plain(s, windows, o, dr, nfold, exact_window)
+            for s, o in zip(scat, sensor_origin)
+        ])
     R, A = scat.shape
     ms = torch.flip(torch.cummin(torch.flip(scat, [0]), dim=0).values, [0])
     d_r = torch.arange(R, dtype=torch.float32, device=scat.device)[:, None] * dr

@@ -22,6 +22,10 @@ optional ``a1``, ``r_idx`` and bool ``in_range``).
 It launches the kernel (``csrc/resample.cu``) for a CUDA tensor and runs
 the plain twin for a CPU tensor; a build or launch failure raises.
 ``launches`` counts kernel launches.
+
+A batch of K frames (the scan-batched replay step) is one launch: field
+[K, R, A], position [K, 2], sensor_origin [K, 3], window offsets int32[K],
+outputs [K, h, w]; each frame equals the one-frame call's bit for bit.
 """
 
 from __future__ import annotations
@@ -115,7 +119,7 @@ def library():
     lib = cuda_build.load(SOURCE)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fastdem_resample_lookup.argtypes = [
-        vp, vp, vp, ci, ci, vp, vp, ctypes.POINTER(_LookupParams), vp, vp, vp,
+        vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, ctypes.POINTER(_LookupParams), vp, vp, vp,
     ]
     lib.fastdem_resample_lookup.restype = ci
     lib.fastdem_cuda_error_string.argtypes = [ci]
@@ -215,21 +219,38 @@ def resample_lookup_plain(
     two_reads: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the main path's K4: ``lookup_indices``
-    followed by ``resample_plain``."""
+    followed by ``resample_plain``; a batch frame by frame."""
+    if field.dim() == 3:
+        outs = [
+            resample_lookup_plain(
+                field[k], lk, position[k], sensor_origin[k],
+                None if window is None else (window[0][k], window[1][k], *window[2:]),
+                two_reads,
+            )
+            for k in range(field.shape[0])
+        ]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
     a0, a1, r_idx, in_range = lookup_indices(lk, position, sensor_origin, window)
     return resample_plain(field, a0, a1 if two_reads else None, r_idx, in_range)
 
 
 def _check_lookup_inputs(field, lk, position, sensor_origin, window):
-    if field.dtype != torch.float32 or tuple(field.shape) != (lk.R, lk.A):
+    lead = tuple(field.shape[:-2])
+    if field.dtype != torch.float32 or field.dim() not in (2, 3) or (
+        tuple(field.shape[-2:]) != (lk.R, lk.A)
+    ):
         raise ValueError(
-            f"field must be f32[{lk.R}, {lk.A}], got {field.dtype} {tuple(field.shape)}"
+            f"field must be f32[{lk.R}, {lk.A}] or f32[K, {lk.R}, {lk.A}], "
+            f"got {field.dtype} {tuple(field.shape)}"
         )
     if not field.is_contiguous():
         raise ValueError("field must be contiguous")
     for name, t, n in (("position", position, 2), ("sensor_origin", sensor_origin, 3)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (n,) or t.device != field.device:
-            raise ValueError(f"{name} must be f32[{n}] on the field's device")
+        if t.dtype != torch.float32 or tuple(t.shape) != lead + (n,) or (
+            t.device != field.device
+        ):
+            raise ValueError(f"{name} must be f32[{n}] (f32[K, {n}] for K frames) "
+                             "on the field's device")
     if window is None:
         return
     r0, c0, wr, wc = window
@@ -237,10 +258,11 @@ def _check_lookup_inputs(field, lk, position, sensor_origin, window):
         if (
             not isinstance(t, torch.Tensor)
             or t.dtype != torch.int32
-            or t.numel() != 1
+            or (tuple(t.shape) != lead if lead else t.numel() != 1)
             or t.device != field.device
         ):
-            raise ValueError(f"window offset {name} must be an int32 scalar on the field's device")
+            raise ValueError(f"window offset {name} must be an int32 scalar (int32[K] for "
+                             "K frames) on the field's device")
     for name, n, most in (("wr", wr, lk.geom.rows), ("wc", wc, lk.geom.cols)):
         if not isinstance(n, int) or not 1 <= n <= most:
             raise ValueError(f"window extent {name}={n!r} outside 1..{most}")
@@ -254,8 +276,8 @@ def resample_lookup_cuda(
     window: Optional[Tuple] = None,
     two_reads: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the main path's K4 on the current stream; every tensor on one
-    CUDA device."""
+    """Launch the main path's K4 on the current stream (one launch for a
+    batch of frames); every tensor on one CUDA device."""
     global launches
     if field.device.type != "cuda":
         raise ValueError(f"K4 needs a CUDA tensor, got one on {field.device}")
@@ -268,15 +290,20 @@ def resample_lookup_cuda(
         r0, c0, wr, wc = window
         r0, c0 = r0.contiguous(), c0.contiguous()
     params = lk.params(wr, wc, two_reads)
-    ray_min = torch.empty((wr, wc), dtype=torch.float32, device=field.device)
-    touched = torch.empty((wr, wc), dtype=torch.bool, device=field.device)
+    lead = tuple(field.shape[:-2])
+    batched = bool(lead)
+    ray_min = torch.empty(lead + (wr, wc), dtype=torch.float32, device=field.device)
+    touched = torch.empty(lead + (wr, wc), dtype=torch.bool, device=field.device)
     stream = torch.cuda.current_stream(field.device).cuda_stream
     err = lib.fastdem_resample_lookup(
         ctypes.c_void_p(field.data_ptr()),
         ctypes.c_void_p(position.data_ptr()),
         ctypes.c_void_p(sensor_origin.data_ptr()),
-        ctypes.c_int(position.stride(0)),
-        ctypes.c_int(sensor_origin.stride(0)),
+        ctypes.c_int(position.stride(-1)),
+        ctypes.c_int(sensor_origin.stride(-1)),
+        ctypes.c_int(position.stride(0) if batched else 0),
+        ctypes.c_int(sensor_origin.stride(0) if batched else 0),
+        ctypes.c_int(lead[0] if batched else 1),
         ctypes.c_void_p(r0.data_ptr() if r0 is not None else None),
         ctypes.c_void_p(c0.data_ptr() if c0 is not None else None),
         ctypes.byref(params),

@@ -356,19 +356,6 @@ def fetch_regions(
 # ---- the integrate step -----------------------------------------------------
 
 
-def _phases_kwargs(kw: dict) -> dict:
-    """Positional defaults of ``pipeline._build_phases`` the sharded
-    build functions accept as keywords."""
-    return {
-        "ray_num_azimuth": kw.pop("ray_num_azimuth", None),
-        "ray_range_bin_factor": kw.pop("ray_range_bin_factor", None),
-        "ray_max_range": kw.pop("ray_max_range", None),
-        "scatter_mode": kw.pop("scatter_mode", "rows"),
-        "voxel_count_mode": kw.pop("voxel_count_mode", None),
-        "ray_exact_window": kw.pop("ray_exact_window", True),
-    }
-
-
 def _blocks_step(
     geom: GridGeometry, cfg, mesh: BlockMesh, window_update, polar_field_impl,
     full_blocks: bool, step_kwargs: dict,
@@ -376,22 +363,14 @@ def _blocks_step(
     """The per-scan step over the mesh's owned blocks; ValueError where the
     windowed formulation does not apply (``full_blocks`` False)."""
     from fastdem_tpu_torch.config import MappingMode
-    from fastdem_tpu_torch.mapping.pipeline import IntegrateAux, _build_phases
+    from fastdem_tpu_torch.mapping.pipeline import IntegrateAux, _phases_of
 
-    kw = dict(step_kwargs)
-    pos_kw = _phases_kwargs(kw)
-    window_margin = kw.pop("window_margin", 2.0)
-    if kw:
-        raise TypeError(f"unexpected arguments: {sorted(kw)}")
     if window_update is False and not full_blocks:
         raise ValueError("caller pinned window_update=False")
     phases = {
-        dev: _build_phases(
-            geom, cfg, pos_kw["ray_num_azimuth"], pos_kw["ray_range_bin_factor"],
-            pos_kw["ray_max_range"], pos_kw["scatter_mode"], pos_kw["voxel_count_mode"],
-            pos_kw["ray_exact_window"], polar_field_impl=polar_field_impl,
-            window_update=window_update, window_margin=window_margin,
-            spmd_blocks=mesh.shape, full_blocks=full_blocks, device=dev,
+        dev: _phases_of(
+            geom, cfg, dev, step_kwargs, polar_field_impl=polar_field_impl,
+            window_update=window_update, spmd_blocks=mesh.shape, full_blocks=full_blocks,
         )
         for dev in mesh.local_devices()
     }

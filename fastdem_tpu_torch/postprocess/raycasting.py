@@ -162,7 +162,9 @@ def polar_smeared_field(
     impl: str = "auto",
     windows: Optional[k1.ColumnWindows] = None,
 ) -> torch.Tensor:
-    """Scattered [R*A] min slopes -> azimuth-smeared height field [R, A].
+    """Scattered [R*A] min slopes -> azimuth-smeared height field [R, A]
+    (K scans' [K, R*A] with sensor origins [K, 3] -> [K, R, A], one K1
+    launch).
 
     ``impl``: "auto" runs K1 on a CUDA tensor and its plain twin on a CPU
     tensor; "pallas" is K1 and raises on a CPU tensor; "xla" is the plain
@@ -176,7 +178,7 @@ def polar_smeared_field(
             geom, num_azimuth, range_bin_factor, max_range, scat_flat.device
         )
     nfold = max(1, int(math.ceil(1.0 / range_bin_factor)))
-    scat = scat_flat.reshape(R, A)
+    scat = scat_flat.reshape(tuple(scat_flat.shape[:-1]) + (R, A))
     if impl == "pallas":
         fn = k1.polar_field_cuda
     elif impl == "xla":

@@ -10,7 +10,9 @@ edge shapes: folds of 1 and 10 rows, A = 1024, R off the segment sizes, a
 tall field that the column pass walks in chunks; and with window tables of
 any shift), K4 against its plain twin (bit for bit in both forms, NaN
 propagated), the main path's K4 with its index math against its twin
-(whole map and window, one and two reads), their launch counters, the
+(whole map and window, one and two reads), K1 and K4 over a batch of
+frames in one launch against their one-frame launches and twins, their
+launch counters, the
 wrappers' input checks, small sessions (flagship,
 windowed GLOBAL with Kalman and P^2) on the card against the same sessions
 on the CPU, and the post-processing chain and the sampled raycast on the
@@ -24,7 +26,9 @@ draws on the card equal to the CPU's; the block-sharded map on a 2x2 mesh
 of one card against the unsharded step bit for bit (K1 once and K4 once
 per block per scan), two gloo processes on the card against one process,
 the sharded post-processing chain against the unsharded one, and a
-program-cache bundle that a second process loads without building.
+program-cache bundle that a second process loads without building; the
+packed, twophase and sort steps on the card against the CPU, and the
+microbatch and fused replay steps against the step loop.
 """
 
 import numpy as np
@@ -130,6 +134,69 @@ def test_k1_rejects_bad_inputs(cuda):
         k1.polar_field_cuda(scat, win, so, dr, k1.NFOLD_MAX + 1, True)
     with pytest.raises(ValueError, match="sensor_origin"):
         k1.polar_field_cuda(scat, win, so.cpu(), dr, nfold, True)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_k1_batched_matches_single_and_plain(cuda, exact):
+    """K = 5 fields [K, R, A] with their own sensor heights in one launch:
+    each equal to the one-field launch and to the plain twin, bit for bit."""
+    rng = np.random.default_rng(12)
+    K = 5
+    scat, win, _, dr, nfold = polar_inputs(cuda, 2048, 0.25, 12.81)
+    R, A = scat.shape
+    batch = torch.tensor(rng.uniform(-2.0, 0.5, (K, R, A)).astype(np.float32), device=cuda)
+    batch[torch.rand((K, R, A), device=cuda) < 0.97] = float("inf")
+    so = torch.tensor(rng.uniform(0.5, 1.5, (K, 3)).astype(np.float32), device=cuda)
+    before = k1.launches
+    got = k1.polar_field_cuda(batch, win, so, dr, nfold, exact)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1 and tuple(got.shape) == (K, R, A)
+    ref = k1.polar_field_plain(batch, win, so, dr, nfold, exact)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                  ref.cpu().numpy().view(np.int32))
+    for k in range(K):
+        one = k1.polar_field_cuda(batch[k].contiguous(), win, so[k].contiguous(), dr, nfold,
+                                  exact)
+        assert torch.equal(one.view(torch.int32), got[k].view(torch.int32))
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+def test_k4_batched_matches_single_and_plain(cuda, windowed):
+    """K = 4 frames (fields, positions, sensor origins and window offsets of
+    their own) in one launch: each equal to the one-frame launch and to
+    the plain twin, bit for bit."""
+    rng = np.random.default_rng(13)
+    K = 4
+    if windowed:
+        geom, polar, wr = fd.GridGeometry.from_length(200.0, 200.0, 0.1), (2048, 0.25, 24.0), 484
+    else:
+        geom, polar, wr = fd.GridGeometry.from_length(15.0, 15.0, 0.1), (2048, 0.25, 12.81), None
+    lk = raycast.polar_lookup(geom, *polar)
+    field = rng.uniform(-2.0, 0.5, (K, lk.R, lk.A)).astype(np.float32)
+    field[rng.random(field.shape) < 0.5] = np.inf
+    field = torch.tensor(field, device=cuda)
+    pos = torch.tensor(rng.uniform(-0.3, 0.3, (K, 2)).astype(np.float32), device=cuda)
+    so = torch.tensor(np.column_stack([rng.uniform(-20, 20, (K, 2)), np.ones(K)])
+                      .astype(np.float32), device=cuda)
+    window = None
+    if windowed:
+        r0 = torch.tensor(rng.integers(0, geom.rows - wr, K).astype(np.int32), device=cuda)
+        c0 = torch.tensor(rng.integers(0, geom.cols - wr, K).astype(np.int32), device=cuda)
+        window = (r0, c0, wr, wr)
+    before = k4.launches
+    h, t = k4.resample_lookup_cuda(field, lk, pos, so, window)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    h_ref, t_ref = k4.resample_lookup_plain(field, lk, pos, so, window)
+    np.testing.assert_array_equal(t.cpu().numpy(), t_ref.cpu().numpy())
+    np.testing.assert_array_equal(h.cpu().numpy().view(np.int32),
+                                  h_ref.cpu().numpy().view(np.int32))
+    for k in range(K):
+        w = None if window is None else (r0[k], c0[k], wr, wr)
+        h1, t1 = k4.resample_lookup_cuda(field[k].contiguous(), lk, pos[k].contiguous(),
+                                         so[k].contiguous(), w)
+        assert torch.equal(h1.view(torch.int32), h[k].view(torch.int32))
+        assert torch.equal(t1, t[k])
 
 
 def session(device, impl, n_scans=4):
@@ -362,6 +429,64 @@ def test_integrate_sequence_equals_loop_on_card(cuda):
     for name, ref in loop.state.layers.items():
         np.testing.assert_array_equal(seq.state.layers[name].cpu().numpy().view(np.int32),
                                       ref.cpu().numpy().view(np.int32), err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["packed", "twophase", "sort"])
+def test_scatter_modes_on_card_match_cpu(cuda, mode):
+    """Four flagship scans through build_integrate(scatter_mode=mode) on the
+    card and on the CPU (sort with the raycast off)."""
+    xyz, poses = replay_scans(4)
+    cfg = fd.Config()
+    cfg.raycasting.enabled = mode != "sort"
+    geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1)
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[2, 3] = 1.0
+    states = []
+    for dev in (cuda, "cpu"):
+        step = fd.build_integrate(geom, cfg, scatter_mode=mode, device=dev)
+        s = fd.create_map_state(geom, cfg, device=dev)
+        for k in range(4):
+            s, _ = step(s, torch.tensor(xyz[k], device=dev), torch.ones(30000, dtype=torch.bool,
+                        device=dev), torch.tensor(T_bs, device=dev),
+                        torch.tensor(poses[k], device=dev))
+        states.append(s)
+    gpu, cpu = states
+    assert_states_agree(cpu, gpu)
+    for name in ("n_points", "elevation_min", "elevation_max"):
+        np.testing.assert_array_equal(gpu.layers[name].cpu().numpy(), cpu.layers[name].numpy(),
+                                      err_msg=name)
+
+
+def test_microbatch_and_fused_on_card_equal_loop(cuda):
+    """Eight flagship scans through microbatch 4 and fused (K = 8): every
+    layer equal to the step loop on the card, K1 and K4 launched once per
+    batch."""
+    from fastdem_tpu_torch.mapping import pipeline as pl
+
+    xyz, poses = replay_scans(8)
+    cfg = fd.Config()
+    cfg.raycasting.enabled = True
+    cfg.mapping.mode = fd.MappingMode.LOCAL
+    geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1)
+    T_bs = torch.eye(4, device=cuda)
+    T_bs[2, 3] = 1.0
+    X = torch.tensor(np.stack(xyz), device=cuda)
+    M = torch.ones((8, 30000), dtype=torch.bool, device=cuda)
+    P = torch.tensor(poses, device=cuda)
+    step = fd.build_integrate(geom, cfg, device=cuda)
+    ref = fd.create_map_state(geom, cfg, device=cuda)
+    for k in range(8):
+        ref, _ = step(ref, X[k], M[k], T_bs, P[k])
+    for fn, batches in ((pl.build_integrate_sequence(geom, cfg, microbatch=4, device=cuda), 2),
+                        (pl.build_integrate_fused(geom, cfg, device=cuda), 1)):
+        torch.cuda.synchronize()
+        before, before4 = k1.launches, k4.launches
+        got = fn(fd.create_map_state(geom, cfg, device=cuda), X, M, T_bs, P)
+        torch.cuda.synchronize()
+        assert (k1.launches - before, k4.launches - before4) == (batches, batches)
+        for name, r in ref.layers.items():
+            np.testing.assert_array_equal(got.layers[name].cpu().numpy().view(np.int32),
+                                          r.cpu().numpy().view(np.int32), err_msg=name)
 
 
 def test_async_driver_on_card(cuda):

@@ -245,13 +245,9 @@ def test_unported_configurations_raise():
     geom = ft.GridGeometry.from_length(15.0, 15.0, 0.1)
     cfg = ft.Config()
     cfg.raycasting.enabled = True
-    cases = [
-        dict(scatter_mode="packed"),
-        dict(scatter_mode="twophase"),
-    ]
-    for kw in cases:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ft.build_integrate(geom, cfg, device="cpu", **kw)
+    # Every scatter mode is ported (tests/test_torch_scatter_modes.py).
+    for mode in ("rows", "packed", "twophase"):
+        assert ft.build_integrate(geom, cfg, scatter_mode=mode, device="cpu").scatter_mode == mode
     # Blocks are ported; a LOCAL map refuses them, as in the reference.
     with pytest.raises(ValueError, match="GLOBAL"):
         ft.build_integrate(geom, cfg, spmd_blocks=(2, 2), device="cpu")
@@ -269,8 +265,8 @@ def test_unported_configurations_raise():
         return c
 
     # More than 2^19 cells unwindowed, or a window above 2^19 cells (a 40 m
-    # range filter at 0.1 m): the reference switches to its packed
-    # rasterizer there; the port builds the rows step at any size.
+    # range filter at 0.1 m): the port switches to its packed rasterizer
+    # there, as the reference does.
     large = [
         (ft.GridGeometry.from_length(80.0, 80.0, 0.1),
          cfg_with(mapping__mode=ft.MappingMode.GLOBAL)),
@@ -278,7 +274,7 @@ def test_unported_configurations_raise():
          cfg_with(mapping__mode=ft.MappingMode.GLOBAL, point_filter__range_max=40.0)),
     ]
     for g, c in large:
-        assert callable(ft.build_integrate(g, c, device="cpu"))
+        assert ft.build_integrate(g, c, device="cpu").scatter_mode == "packed"
 
     # What earlier raised now builds and integrates one scan: P^2, the
     # windowed update (a 2 m range filter on a 60 m GLOBAL map), the

@@ -137,11 +137,33 @@ def test_padding_frames_change_nothing(geom, raycast):
                    sequence(geom, cfg, xyz, mask, tbs, poses))
 
 
-def test_microbatch_is_not_ported(geom):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe_t.build_integrate_sequence(geom, config(), microbatch=4, device="cpu")
+def test_microbatch_is_not_ported(geom, caplog):
+    """The reference's microbatch checks (the batched step itself:
+    ``tests/test_torch_microbatch.py``): m >= 1; m * (cells + 1) within
+    2^21; K a multiple of m at the call; and a configuration without a
+    batched phase A (the sampled raycast) runs scan by scan with a
+    warning, its map the loop's."""
     with pytest.raises(ValueError, match="microbatch"):
         pipe_t.build_integrate_sequence(geom, config(), microbatch=0, device="cpu")
+    big = ft.GridGeometry.from_length(60.0, 60.0, 0.1)  # 360,000 cells
+    with pytest.raises(ValueError, match="microbatch=8"):
+        pipe_t.build_integrate_sequence(big, config(), microbatch=8, device="cpu")
+    seq = pipe_t.build_integrate_sequence(geom, config(), microbatch=4, device="cpu")
+    rng = np.random.default_rng(2)
+    xyz, poses = scans(6, rng, n=500)
+    with pytest.raises(ValueError, match="multiple of microbatch"):
+        seq(ft.create_map_state(geom, config(), device="cpu"), torch.tensor(xyz),
+            torch.ones(6, 500, dtype=torch.bool), torch.eye(4), torch.tensor(poses))
+    cfg = config()
+    cfg.raycasting.method = "sampled"
+    with caplog.at_level("WARNING", logger="fastdem_tpu_torch"):
+        seq = pipe_t.build_integrate_sequence(geom, cfg, microbatch=2, device="cpu")
+    assert any("scan by scan" in r.message for r in caplog.records)
+    mask = np.ones((6, 500), dtype=bool)
+    tbs = np.eye(4, dtype=np.float32)
+    got = seq(ft.create_map_state(geom, cfg, device="cpu"), torch.tensor(xyz),
+              torch.tensor(mask), torch.tensor(tbs), torch.tensor(poses))
+    assert_bitwise(got, step_loop(geom, cfg, xyz, mask, tbs, poses))
 
 
 def clouds_of(xyz, **kw):

@@ -292,6 +292,38 @@ def test_global_fullmap_fallback_bitwise(method):
     assert_bitwise(ref, sh.gather_state(sN))
 
 
+@pytest.mark.parametrize("side,mode", [(73.0, "packed"), (60.0, "rows")])
+def test_fullmap_fallback_over_the_unsharded_rasterizer(side, mode):
+    """The fallback picks the rasterizer from the whole map's update area,
+    as the unsharded step does: a 730 x 730 LOCAL map (532,900 cells, above
+    2^19) runs packed mode, a 600 x 600 one rows mode, each on a 2x2 mesh
+    of blocks below 2^19 cells. Near-tie scans (a 13-bit index and a post,
+    so the pairs tie in the argmin key) make the blocks' argmin carries
+    depend on the whole scan's z range and point index; the voxel counts
+    take the unsharded path (representatives, where a block's own table
+    would hold presence lanes in rows mode). Every layer and the position
+    equal the unsharded step's bit for bit."""
+    from test_torch_replay import near_ties
+
+    geom = ft.GridGeometry.from_length(side, side, 0.1)
+    cfg = config(ft, "LOCAL")
+    rng = np.random.default_rng(9)
+    stream = []
+    for k in range(2):
+        xyz, mask = scan(n=8192, seed=k)
+        xyz = near_ties(xyz * np.array([4.0, 4.0, 1.0], np.float32))
+        xyz[-5:, 2] += 4.0
+        stream.append((xyz, mask & (rng.random(8192) > 0.02), pose(0.6 * k, -0.4 * k)))
+    T_bs = I4.copy()
+    T_bs[2, 3] = 1.0
+    assert build_integrate(geom, cfg, device="cpu").scatter_mode == mode
+    ref = run_unsharded(geom, cfg, stream, T_bs)
+    sN, _, step = run_sharded(geom, cfg, stream, T_bs, mesh=cpu_mesh(4, (2, 2)))
+    assert step.formulation == "blocks_fullmap"
+    assert_bitwise(ref, sh.gather_state(sN))
+    assert (ref.layers["n_points"] > 0).sum() > 4000
+
+
 # ---- (d) no collective ----------------------------------------------------------
 
 

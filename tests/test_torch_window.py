@@ -262,26 +262,31 @@ def _rows_vs_packed_scans(rng, k_scans=3, n=10000):
     return out
 
 
+def assert_layers_bitwise(layers_j, state_t):
+    """Every layer equal to JAX's bit for bit (NaN sets exact; NaN
+    payloads not compared)."""
+    assert set(layers_j) == set(state_t.layers)
+    for name, ref in layers_j.items():
+        a, b = np.asarray(ref), state_t.layers[name].numpy()
+        nan = np.isnan(a)
+        np.testing.assert_array_equal(np.isnan(b), nan, err_msg=f"{name}: NaN set")
+        np.testing.assert_array_equal(b[~nan].view(np.int32), a[~nan].view(np.int32),
+                                      err_msg=name)
+
+
 def test_rows_above_2_19_cells_against_jax_packed():
     """The smallest square map above 2^19 cells (725 x 725 at 0.1 m,
-    GLOBAL, no window, raycast off): the port runs rows mode, where JAX's
-    pipeline switches to ``rasterize_scatter_packed``.
+    GLOBAL, no window, raycast off): JAX's pipeline switches rows mode to
+    ``rasterize_scatter_packed`` there, and so does the port, so every
+    layer equals JAX's bit for bit.
 
-    What differs is min_z. Packed mode takes it from the argmin point of
-    the quantized (z << idx_bits | index) key, so among z within one
-    quantum (scan z-range / 2^(31 - idx_bits), ~40 um here) the lowest
-    index wins; rows mode reads the exact min from its own lane. Measured
-    on these scans (20,000 points each, every second point a near-tie 4 um
-    above its neighbour, 10,180 mapped cells): ``elevation_min`` differs
-    on 22.7% of the mapped cells and ``elevation``, ``_sample_mean`` and
-    the bounds (which follow min_z through the estimator) on 28.0%, by at
-    most 4.05e-6 m (8.64e-6 for the bounds); ``variance`` and
-    ``_sample_m2`` on 10.2%, by at most 8.8e-7. ``obstacle`` (max_z where
-    max_z > min_z) is set on 864 more cells in the port (8.5%): in a cell
-    holding one near-tie pair, packed mode's min_z is the upper point,
-    equal to max_z. ``n_points``, ``elevation_max``, ``_kalman_p`` and
-    every other NaN set are equal, and the obstacle values equal where
-    both are set.
+    Before the port switched, its rows mode read the exact min from its
+    own lane where packed mode takes the argmin point's z (among z within
+    one quantum the lowest index wins): on these near-tie scans (20,000
+    points each, every second point 4 um above its neighbour, 10,180
+    mapped cells) ``elevation_min`` differed on 22.7% of the mapped cells,
+    ``elevation`` and the bounds on 28.0%, and ``obstacle`` was set on 864
+    more cells.
     """
     rng = np.random.default_rng(4)
     gj = fj.GridGeometry.from_length(72.5, 72.5, 0.1)
@@ -297,33 +302,49 @@ def test_rows_above_2_19_cells_against_jax_packed():
         assert mj.integrate(pc_j.from_numpy(xyz, frame_id="lidar"), T_bs, T)
         assert mt.integrate(from_numpy(xyz, frame_id="lidar", device="cpu"), T_bs, T)
     assert mt.last_aux.oow_points is None  # no window
+    assert mt._step.scatter_mode == "packed"
     mapped = np.isfinite(np.asarray(mj.state.layers["elevation"]))
     assert mapped.sum() > 8000
-    for name, ref in mj.state.layers.items():
-        a, b = np.asarray(ref), mt.state.layers[name].numpy()
-        if name == "obstacle":
-            both = np.isfinite(a) & np.isfinite(b)
-            assert not (np.isfinite(a) & ~both).any()
-            np.testing.assert_array_equal(b[both], a[both])
-            assert 0.02 < (np.isfinite(b) & ~both).sum() / mapped.sum() < 0.15
-            continue
-        np.testing.assert_array_equal(np.isnan(b), np.isnan(a), name)
-        diff = (a.view(np.int32) != b.view(np.int32)) & np.isfinite(a)
-        if name in ("n_points", "elevation_max", "_kalman_p"):
-            assert not diff.any(), name
-            continue
-        err = np.abs(a - b)[np.isfinite(a)].max()
-        assert err <= (1e-5 if name.endswith("bound") else 5e-6), (name, err)
-        assert diff[mapped].mean() < 0.35, name
-    share = lambda n: ((np.asarray(mj.state.layers[n]).view(np.int32)  # noqa: E731
-                        != mt.state.layers[n].numpy().view(np.int32)) & mapped).sum() / mapped.sum()
-    assert 0.1 < share("elevation_min") < share("elevation") < 0.35
+    assert_layers_bitwise(mj.state.layers, mt.state)
+    # The map holds near-ties that packed mode resolves by index: min_z is
+    # the upper point in many cells, where rows mode would take the lower.
+    obstacle = np.isfinite(mt.state.layers["obstacle"].numpy())
+    assert 0.02 < obstacle.sum() / mapped.sum() < 0.9
+
+
+def test_windowed_switch_to_packed_against_jax():
+    """A windowed GLOBAL map whose window passes 2^19 cells: 261 x 261 m at
+    0.2 m (1305^2 = 1.7M cells) with an 80 m range filter gives a window
+    of ceil(2 (1.1 * 80 + 2) / 0.2) + 4 = 904 cells a side (817,216), so
+    both pipelines rasterize in packed mode on the window. Two near-tie
+    scans; every layer equal to JAX's bit for bit."""
+    rng = np.random.default_rng(6)
+    maps = []
+    for pkg in (fj, ft):
+        cfg = config(pkg, raycast=False, range_max=80.0)
+        geom = pkg.GridGeometry.from_length(261.0, 261.0, 0.2)
+        kw = {} if pkg is fj else {"device": "cpu"}
+        maps.append(pkg.FastDEM(geom, cfg, **kw))
+    assert maps[1].geom.num_cells == 1305 ** 2
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[2, 3] = 1.0
+    from fastdem_tpu.cloud import pointcloud as pc_j
+
+    assert maps[1]._step.scatter_mode == "packed"
+    for xyz, T in _rows_vs_packed_scans(rng, k_scans=2, n=20000):
+        xyz = xyz * np.array([8.0, 8.0, 1.0], np.float32)  # out to 64 m
+        assert maps[0].integrate(pc_j.from_numpy(xyz, frame_id="lidar"), T_bs, T)
+        assert maps[1].integrate(from_numpy(xyz, frame_id="lidar", device="cpu"), T_bs, T)
+    aux = maps[1].last_aux
+    assert int(aux.oow_points) == 0 and aux.obs.touched.shape == (1305, 1305)
+    assert_layers_bitwise(maps[0].state.layers, maps[1].state)
+    assert (maps[1].state.layers["n_points"] > 0).sum() > 4000
 
 
 def test_sampled_raycast_on_a_large_global_map():
     """The sampled raycast turns the update window off, so on a GLOBAL map
-    above 2^19 cells it rasterizes the whole map in rows mode: it returns
-    a map (it raised before), with JAX's ``n_points``."""
+    above 2^19 cells it rasterizes the whole map, in packed mode as JAX
+    does: every layer equals JAX's bit for bit."""
     rng = np.random.default_rng(8)
     maps = []
     for pkg in (fj, ft):
@@ -341,7 +362,7 @@ def test_sampled_raycast_on_a_large_global_map():
         assert maps[1].integrate(from_numpy(xyz, frame_id="lidar", device="cpu"), T_bs, T)
     got = maps[1].state.layers
     assert maps[1].last_aux.oow_points is None
-    np.testing.assert_array_equal(got["n_points"].numpy(),
-                                  np.asarray(maps[0].state.layers["n_points"]))
+    assert maps[1]._step.scatter_mode == "packed"
+    assert_layers_bitwise(maps[0].state.layers, maps[1].state)
     assert torch.isfinite(got["elevation"]).sum() > 1000
     assert torch.isfinite(got["raycasting"]).sum() > 1000
