@@ -90,11 +90,13 @@ def test_segments_match_jax(rng):
 # ---- the rasterizers -------------------------------------------------------------
 
 
-def scan(rng, n, half):
+def scan(rng, n, half, exact_ties=False):
     """A near-tie scan over [-half, half]^2 with a dense patch, invalid
     points, intensity, colours and variances. With 8,192 points (a 13-bit
     index) the post's z range makes the argmin key's quantum wider than
-    the near-tie gaps, so the pairs tie in the key."""
+    the near-tie gaps, so the pairs tie in the key. ``exact_ties``: 60
+    groups of 6 points in one cell with equal z and equal variance and
+    colours of their own."""
     xyz = np.column_stack([rng.uniform(-half, half, n), rng.uniform(-half, half, n),
                            0.3 * np.sin(rng.uniform(0, 6, n)) + rng.normal(0, 0.05, n)])
     xyz[: n // 4, :2] = rng.uniform(-1.0, 1.0, (n // 4, 2))  # several points a cell
@@ -105,6 +107,16 @@ def scan(rng, n, half):
     z_var[1::7] = z_var[::7][: len(z_var[1::7])]  # equal variances within near-tie pairs
     intensity = rng.uniform(0, 100, n).astype(np.float32)
     color = rng.integers(0, 256, (n, 3)).astype(np.uint8)
+    if exact_ties:
+        for _ in range(60):
+            idx = rng.choice(n - 5, 6, replace=False)
+            xyz[idx, :2] = xyz[idx[0], :2] + rng.uniform(0, 0.01, (6, 2))
+            xyz[idx, 2] = xyz[idx[0], 2]
+            z_var[idx] = z_var[idx[0]]
+            mask[idx] = True
+            # Red >= 128: normal packed floats, which JAX's float min does
+            # not flush, so the tie rule itself is compared bit for bit.
+            color[idx, 0] = rng.integers(128, 256, 6)
     return xyz, mask, z_var, intensity, color
 
 
@@ -122,10 +134,15 @@ MODES = {
 @pytest.mark.parametrize("mode", list(MODES))
 def test_rasterizer_matches_jax(rng, mode, side):
     """100 x 100 cells keep the presence lanes; 300 x 300 (90,000 cells *
-    32 > 2^21) counts voxels through one representative point each."""
+    32 > 2^21) counts voxels through one representative point each.
+    Packed and twophase also take groups of points tied in z and variance
+    with colours of their own (packed keeps the lowest index's colour,
+    twophase the smallest colour); sort mode is held to JAX without them,
+    as JAX's unstable sort may order such a group any way."""
     fn_j, fn_t, kw = MODES[mode]
     n = 8192
-    xyz, mask, z_var, intensity, color = scan(rng, n, 0.05 * side * 0.9)
+    xyz, mask, z_var, intensity, color = scan(rng, n, 0.05 * side * 0.9,
+                                              exact_ties=mode != "sort")
     gj, gt = GeomJ(side, side, 0.1), GeomT(side, side, 0.1)
     pos = np.array([0.13, -0.27], np.float32)
     ref = jax.jit(lambda x, m, v, i, c: fn_j(
