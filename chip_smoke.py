@@ -167,6 +167,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  twins bit for bit at K = 4 and 16, their per-frame device
                  ms; device events, device ms and wall ms per scan of each
                  batch size, in alternating turns.
+ 22. graphs   -- the compiled step (utils/graphs.py): a step with a host
+                 read refuses its capture; 32-scan chains
+                 through build_integrate(jit=True) (CUDA graphs, the state
+                 donated) against jit=False on the flagship Kalman and P2,
+                 the 200 m GLOBAL map, the switch to packed (40 m range)
+                 and the sampled raycast (16 scans): every layer and the
+                 last aux bit for bit, K1 / K4 counted once per replay;
+                 microbatch 16 and fused 16 over 32 scans, graph against
+                 eager bit for bit; the post-processing chain at 150^2 and
+                 2000^2 as a graph against the eager chain, every output
+                 bit for bit on two calls; per path wall ms per scan
+                 (CUDA events and host clock, eager and graph in mirrored
+                 turns), device events and device ms per scan
+                 (torch.profiler), capture seconds and graph memory per
+                 signature; the node (sync intake, 128 scans) with graph
+                 and eager steps in turns: scans/s, maps bit for bit.
+                 Every earlier phase runs the default jit=True.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -289,6 +306,17 @@ MICROBATCHES = (1, 4, 16)
 FUSED_K = 16
 BATCH_KERNEL_FRAMES = (4, 16)
 BATCH_TURNS = 2
+# The compiled step (phase 22): timing turns (each runs eager and graph
+# twice, in mirrored order), scans under the profiler, and the sampled
+# session's length.
+GRAPH_TURNS = 1
+GRAPH_PROFILE_SCANS = 8
+GRAPH_SAMPLED_SCANS = 16
+GRAPH_NODE_WARM = 8
+# Phase 22's node on scans of varying size: this many scans, each cut to a
+# size drawn in [lo, hi) (three powers of two: 8,192 / 16,384 / 32,768).
+VARY_SCANS = 64
+VARY_POINTS = (6000, 30000)
 
 
 def terrain(x, y):
@@ -456,11 +484,12 @@ def cuda_median_ms(fn, reps):
     return float(np.median(times))
 
 
-def device_profile(fn, reps, top=0):
+def device_profile(fn, reps, top=0, counts=None):
     """(device ms, device events, device ms by kernel name) per call of
     ``fn``: the sum and the count of the CUDA events (kernels, copies,
     fills) of ``reps`` calls under torch.profiler, / reps. ``top`` > 0 also
-    prints that many ops by device time."""
+    prints that many ops by device time; a ``counts`` dict receives the
+    events per call by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -481,6 +510,8 @@ def device_profile(fn, reps, top=0):
             total += t
             count += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + t / reps / 1000.0
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0.0) + 1.0 / reps
     if total <= 0.0:
         raise AssertionError("the profiler recorded no device time")
     return total / reps / 1000.0, count / reps, by_name
@@ -1228,30 +1259,43 @@ def phase_replay(card):
               for k in range(REPLAY_SCANS)]
     poses = np.stack(poses)
 
-    def loop():
-        m = fd.FastDEM(geom, flagship_config(), device="cuda")
-        for k in range(REPLAY_SCANS):
-            m.integrate(clouds[k], T_bs, poses[k])
+    # Each runner keeps its step (and its CUDA graphs) across the turns and
+    # starts every turn from a fresh map: the turns time the steady state.
+    mappers = {way: fd.FastDEM(geom, flagship_config(), device="cuda")
+               for way in ("loop", "sequence")}
+
+    def fresh(way):
+        m = mappers[way]
+        m.state = fd.create_map_state(geom, flagship_config(), device="cuda")
         return m
 
+    def loop():
+        m = fresh("loop")
+        for k in range(REPLAY_SCANS):
+            m.integrate(clouds[k], T_bs, poses[k])
+        return SimpleNamespace(state=m.state)
+
     def sequence():
-        m = fd.FastDEM(geom, flagship_config(), device="cuda")
+        m = fresh("sequence")
         if m.integrate_sequence(clouds, T_bs, poses, batch=REPLAY_BATCH) != REPLAY_SCANS:
             raise AssertionError("integrate_sequence dropped scans")
-        return m
+        return SimpleNamespace(state=m.state)
 
     xyz = torch.as_tensor(np.asarray(scans, np.float32), device="cuda")
     mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device="cuda")
     tbs_d = torch.as_tensor(T_bs, device="cuda")
     twb_d = torch.as_tensor(poses, device="cuda")
+    seq = build_integrate_sequence(geom, flagship_config(), device="cuda")
 
     def stacked():
-        seq = build_integrate_sequence(geom, flagship_config(), device="cuda")
         state = fd.create_map_state(geom, flagship_config(), device="cuda")
         for lo in range(0, REPLAY_SCANS, REPLAY_BATCH):
             hi = lo + REPLAY_BATCH
             state = seq(state, xyz[lo:hi], mask[lo:hi], tbs_d, twb_d[lo:hi])
-        return SimpleNamespace(state=state)
+        # The donated state is the graph's slots, which the next turn reuses.
+        return SimpleNamespace(state=fd.GridMapState(
+            layers={k: v.clone() for k, v in state.layers.items()},
+            position=state.position.clone()))
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1264,7 +1308,8 @@ def phase_replay(card):
         end.synchronize()
         return m, start.elapsed_time(end) / REPLAY_SCANS, (time.perf_counter() - t0) * 1e3 / REPLAY_SCANS
 
-    loop()  # warm-up
+    for warm in (loop, sequence, stacked):
+        warm()
     results = {}
     launches = None
     for label, fn in (("loop", loop), ("sequence", sequence), ("stacked", stacked),
@@ -2364,6 +2409,319 @@ def phase_batched_replay(card):
               f"alternating turns: {ms!r} on {card}")
     return l1, l4
 
+def graph_paths():
+    """Phase 22's one-scan paths: (name, geom, cfg, session)."""
+    p2 = flagship_config("p2")
+    switch = global_config()
+    switch.point_filter.range_max = SWITCH_RANGE
+    sampled = flagship_config()
+    sampled.raycasting.method = "sampled"
+    return (
+        ("flagship kalman", flagship_geom(), flagship_config(),
+         lambda: make_session(CHAIN, seed=53)),
+        ("flagship p2", flagship_geom(), p2, lambda: make_session(CHAIN, seed=53)),
+        ("global 200 m", global_geom(), global_config(),
+         lambda: global_session_scans(CHAIN, seed=59)),
+        ("switch to packed", global_geom(), switch,
+         lambda: make_session(CHAIN, seed=61, spread=SWITCH_SPREAD, start=(-12.0, 6.0),
+                              step=(1.7, -0.85))),
+        ("sampled", flagship_geom(), sampled, lambda: make_session(GRAPH_SAMPLED_SCANS,
+                                                                   seed=67)),
+    )
+
+
+def graph_turns(what, runners, card, n_scans, unit="scan"):
+    """Wall ms per scan (``unit``) of each runner (a thunk over the whole
+    chain from a fresh state), in alternating turns: CUDA events and the
+    host clock."""
+    walls = {k: [] for k in runners}
+    order = list(runners)
+    for turn in range(GRAPH_TURNS):
+        for k in (order + order[::-1]) if turn == 0 else (order[::-1] + order):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            runners[k]()
+            end.record()
+            end.synchronize()
+            walls[k].append((start.elapsed_time(end) / n_scans,
+                             (time.perf_counter() - t0) * 1e3 / n_scans))
+    for k, ms in walls.items():
+        print(f"phase 22 {what} {k}: wall ms/{unit} over {n_scans} {unit}s in alternating "
+              f"turns (CUDA events, host clock): {ms!r} on {card}")
+    return walls
+
+
+def graph_stats(what, step, card):
+    for st in step.stats():
+        print(f"phase 22 {what}: capture {st.capture_seconds!r} s (slots, warm-up, capture, "
+              f"first replay), graph pool {st.pool_bytes / 2**20!r} MiB, slots "
+              f"{st.slot_bytes / 2**20!r} MiB, launches per replay "
+              f"{st.launches_per_replay}, replays {st.replays} on {card}")
+
+
+KERNEL_EVENTS = {"K1 column": "polar_column_kernel", "K1 row": "polar_row_kernel",
+                 "K4": "lookup_kernel"}
+
+
+def kernels_seen(what, counts, per_call):
+    """The K1 / K4 kernel events per call in a trace (``device_profile``'s
+    ``counts``) against ``per_call`` (K1, K4), the launches the counters
+    gave over the same calls; prints the trace's numbers."""
+    seen = {k: sum(n for name, n in counts.items() if ev in name)
+            for k, ev in KERNEL_EVENTS.items()}
+    print(f"phase 22 {what}: kernel events per call in the trace {seen!r}, launches per "
+          f"call by the counters K1 {per_call[0]!r}, K4 {per_call[1]!r}")
+    want = {"K1 column": per_call[0], "K1 row": per_call[0], "K4": per_call[1]}
+    if any(abs(seen[k] - want[k]) > 1e-9 for k in want):
+        raise AssertionError(f"phase 22 {what}: the trace's K1 / K4 kernels {seen} differ "
+                             f"from the counters' {want}")
+    return seen
+
+
+def check_aux(what, eager, graph):
+    """The aux of the last scan, graph against eager, bit for bit."""
+    pairs = [("world_xyz", eager.world_xyz, graph.world_xyz),
+             ("world_mask", eager.world_mask, graph.world_mask)]
+    pairs += [(f, getattr(eager.obs, f), getattr(graph.obs, f))
+              for f in ("min_z", "max_z", "min_z_var", "touched", "voxel_count")
+              if getattr(eager.obs, f) is not None]
+    bad = [f for f, a, b in pairs if not torch.equal(
+        a.view(torch.uint8) if a.dtype == torch.bool else a.view(torch.int32),
+        b.view(torch.uint8) if b.dtype == torch.bool else b.view(torch.int32))]
+    if bad:
+        raise AssertionError(f"{what}: the graph's aux differs from eager on {bad}")
+
+
+def phase_graphs(card, flagship_state, global_state):
+    """Phase 22: every step and the chain as CUDA graphs against their
+    eager form. Returns the K1 and K4 launches of the graph runs."""
+    from fastdem_tpu_torch.mapping.pipeline import build_integrate_fused
+    from fastdem_tpu_torch.utils import graphs
+
+    dev = torch.device("cuda")
+    # A step that reads the device from the host must refuse its capture
+    # (and leave the process able to capture the paths below).
+    eager = fd.build_integrate(flagship_geom(), flagship_config(), jit=False, device="cuda")
+
+    def reads(state, *args):
+        state, aux = eager(state, *args)
+        float(state.position.sum())
+        return state, aux
+
+    scans, T_bs, poses = make_session(1, seed=53)
+    try:
+        graphs.jit(reads)(fd.create_map_state(flagship_geom(), flagship_config(), device="cuda"),
+                          torch.tensor(scans[0], device=dev),
+                          torch.ones(N_POINTS, dtype=torch.bool, device=dev),
+                          torch.tensor(T_bs, device=dev), torch.tensor(poses[0], device=dev))
+    except RuntimeError as err:
+        print(f"phase 22 refusal: a step with a host read raised on capture: "
+              f"{str(err)[:160]!r}")
+    else:
+        raise AssertionError("phase 22: a step with a host read was captured")
+    l1 = l4 = 0
+    for what, geom, cfg, session in graph_paths():
+        scans, T_bs, poses = session()
+        n = len(poses)
+        X = [torch.tensor(x, device=dev) for x in scans]
+        P = [torch.tensor(T, device=dev) for T in poses]
+        TB = torch.tensor(T_bs, device=dev)
+        M = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
+        steps = {"eager": fd.build_integrate(geom, cfg, jit=False, device="cuda"),
+                 "graph": fd.build_integrate(geom, cfg, device="cuda")}
+
+        def chain(step, scans=range(n)):
+            state = fd.create_map_state(geom, cfg, device="cuda")
+            for k in scans:
+                state, aux = step(state, X[k], M, TB, P[k])
+            return state, aux
+
+        ref, aux_e = chain(steps["eager"])
+        torch.cuda.synchronize()
+        k1.launches = k4.launches = 0
+        got, aux_g = chain(steps["graph"])
+        torch.cuda.synchronize()
+        per_scan = 0 if cfg.raycasting.method == "sampled" else 1
+        print(f"phase 22 {what}: {n} scans through the graph, step mode "
+              f"{steps['graph'].scatter_mode}, K1 launches {k1.launches}, K4 launches "
+              f"{k4.launches}")
+        if (k1.launches, k4.launches) != (n * per_scan, n * per_scan):
+            raise AssertionError(f"phase 22 {what}: K1 / K4 not counted once per replay")
+        l1, l4 = l1 + k1.launches, l4 + k4.launches
+        assert_bitwise(f"phase 22 {what} graph == eager", ref, got)
+        check_aux(f"phase 22 {what}", aux_e, aux_g)
+        del ref, got, aux_e, aux_g
+        graph_turns(what, {k: (lambda s=s: chain(s)) for k, s in steps.items()}, card, n)
+        for k, step in steps.items():
+            state = [chain(step, range(GRAPH_PROFILE_SCANS))[0]]
+            it = iter(range(GRAPH_PROFILE_SCANS, 2 * GRAPH_PROFILE_SCANS))
+
+            def one(step=step, state=state, it=it):
+                k_ = next(it)
+                state[0], _ = step(state[0], X[k_], M, TB, P[k_])
+
+            counts = {}
+            k1.launches = k4.launches = 0
+            ms, events, _ = device_profile(one, GRAPH_PROFILE_SCANS, counts=counts)
+            print(f"phase 22 {what} {k}: {events!r} device events per scan, {ms!r} device "
+                  f"ms per scan (torch.profiler over {GRAPH_PROFILE_SCANS} scans) on {card}")
+            seen = kernels_seen(f"{what} {k}", counts,
+                                (k1.launches / GRAPH_PROFILE_SCANS,
+                                 k4.launches / GRAPH_PROFILE_SCANS))
+            if seen["K4"] != per_scan:
+                raise AssertionError(f"phase 22 {what} {k}: K4 ran {seen['K4']} times a scan")
+        graph_stats(what, steps["graph"], card)
+        del steps
+        torch.cuda.empty_cache()
+
+    # ---- the replay steps: microbatch 16 and fused 16 over 32 scans ----
+    geom = flagship_geom()
+    cfg = flagship_config()
+    scans, T_bs, poses = make_session(CHAIN, seed=71)
+    X = torch.tensor(np.asarray(scans), device=dev)
+    M = torch.ones((CHAIN, N_POINTS), dtype=torch.bool, device=dev)
+    TB = torch.tensor(T_bs, device=dev)
+    P = torch.tensor(np.stack(poses), device=dev)
+    for what, build in (("microbatch 16", lambda jit: build_integrate_sequence(
+            geom, cfg, microbatch=FUSED_K, jit=jit, device="cuda")),
+            ("fused 16", lambda jit: build_integrate_fused(geom, cfg, jit=jit, device="cuda"))):
+        fns = {"eager": build(False), "graph": build(True)}
+
+        def run(fn):
+            state = fd.create_map_state(geom, cfg, device="cuda")
+            for lo in range(0, CHAIN, FUSED_K):
+                state = fn(state, X[lo:lo + FUSED_K], M[lo:lo + FUSED_K], TB,
+                           P[lo:lo + FUSED_K])
+            return state
+
+        ref = run(fns["eager"])
+        torch.cuda.synchronize()
+        k1.launches = k4.launches = 0
+        got = run(fns["graph"])
+        torch.cuda.synchronize()
+        want = CHAIN // FUSED_K
+        print(f"phase 22 {what}: {CHAIN} scans through the graph, K1 launches {k1.launches}, "
+              f"K4 launches {k4.launches}")
+        if (k1.launches, k4.launches) != (want, want):
+            raise AssertionError(f"phase 22 {what}: K1 / K4 not counted once per replay")
+        l1, l4 = l1 + k1.launches, l4 + k4.launches
+        assert_bitwise(f"phase 22 {what} graph == eager", ref, got)
+        graph_turns(what, {k: (lambda f=f: run(f)) for k, f in fns.items()}, card, CHAIN)
+        for k, fn in fns.items():
+            counts = {}
+            k1.launches = k4.launches = 0
+            ms, events, _ = device_profile(lambda fn=fn: run(fn), 1, counts=counts)
+            print(f"phase 22 {what} {k}: {events / CHAIN!r} device events per scan, "
+                  f"{ms / CHAIN!r} device ms per scan (torch.profiler over {CHAIN} scans) "
+                  f"on {card}")
+            seen = kernels_seen(f"{what} {k}", counts, (k1.launches, k4.launches))
+            if seen["K4"] != want:
+                raise AssertionError(f"phase 22 {what} {k}: K4 ran {seen['K4']} times")
+        graph_stats(what, fns["graph"], card)
+
+    # ---- the post-processing chain at 150^2 and 2000^2 ----
+    pp = postprocess_config()
+    for what, g, state in (("chain 150x150", flagship_geom(), flagship_state),
+                           ("chain 2000x2000", global_geom(), global_state)):
+        layers = [state.layers[k] for k in ("elevation", "upper_bound", "lower_bound")]
+        fns = {"eager": apply_postprocess_fn(g, pp)}
+        fns["graph"] = graphs.jit(fns["eager"], donate=False)
+        ref = fns["eager"](*layers)
+        got = fns["graph"](*layers)
+        again = fns["graph"](*layers)
+        bad = [k for k, v in ref.items() for out in (got, again)
+               if not torch.equal(out[k].view(torch.int32), v.view(torch.int32))]
+        print(f"phase 22 {what}: {len(ref)} outputs, graph == eager bit for bit (NaN sets "
+              f"included) on two calls: {not bad}")
+        if bad:
+            raise AssertionError(f"phase 22 {what}: the graph differs on {sorted(set(bad))}")
+        del ref, got, again
+        graph_turns(what, {k: (lambda f=f: f(*layers)) for k, f in fns.items()}, card, 1,
+                    unit="chain")
+        for k, fn in fns.items():
+            ms, events, _ = device_profile(lambda fn=fn: fn(*layers), PP_REPS)
+            print(f"phase 22 {what} {k}: {events!r} device events, {ms!r} device ms per "
+                  f"chain (torch.profiler over {PP_REPS}) on {card}")
+        graph_stats(what, fns["graph"], card)
+        del fns
+        torch.cuda.empty_cache()
+
+    # ---- the node, sync intake: graph against eager steps, in turns ----
+    from fastdem_tpu_torch.runtime import NodeConfig
+
+    node_cfg = NodeConfig.from_preset("local_mapping")
+    clouds, calib, odom = node_stream(NODE_RATE_SCANS)
+    rates = {"graph": [], "eager": []}
+    maps = []
+    for way in ("graph", "eager", "eager", "graph"):
+        with node_driver(node_cfg, calib, odom) as d:
+            if way == "eager":
+                m = d.mapper
+                m._step = fd.build_integrate(m.geom, m.cfg, jit=False,
+                                             window_margin=m._window_margin, device="cuda")
+            # The first scans capture the graph; the rate is taken after them.
+            for c in clouds[:GRAPH_NODE_WARM]:
+                d.on_scan(c)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for c in clouds[GRAPH_NODE_WARM:]:
+                if not d.on_scan(c):
+                    raise AssertionError("phase 22 node: a scan was refused")
+            torch.cuda.synchronize()
+            rates[way].append((NODE_RATE_SCANS - GRAPH_NODE_WARM) / (time.perf_counter() - t0))
+            if d.scan_count != NODE_RATE_SCANS:
+                raise AssertionError(f"phase 22 node: {d.scan_count} scans integrated")
+            maps.append(d.mapper.state)
+    differ = sorted({k for m in maps[1:] for k, v in m.layers.items()
+                     if not torch.equal(v.view(torch.int32), maps[0].layers[k].view(torch.int32))})
+    print(f"phase 22 node, sync intake, scans/s over {NODE_RATE_SCANS - GRAPH_NODE_WARM} "
+          f"scans after {GRAPH_NODE_WARM}, in turns: {rates!r}; "
+          f"layers differing bitwise between the runs: {differ} on {card}")
+    if differ:
+        raise AssertionError(f"phase 22 node: the graph and eager maps differ on {differ}")
+
+    # ---- the node on scans of varying size: a graph per power of two ----
+    sizes = np.random.default_rng(83).integers(*VARY_POINTS, VARY_SCANS)
+    full, calib, odom = node_stream(VARY_SCANS)
+    vclouds = [fd.cloud.from_numpy(c.xyz[:n].numpy(), frame_id="lidar",
+                                   timestamp_ns=c.timestamp_ns, device="cpu")
+               for c, n in zip(full, sizes)]
+    rungs = sorted({1 << int(n - 1).bit_length() for n in sizes})
+    maps, rates = {}, {}
+    for way in ("graph", "eager"):
+        with node_driver(node_cfg, calib, odom) as d:
+            if way == "eager":
+                m = d.mapper
+                m._step = fd.build_integrate(m.geom, m.cfg, jit=False,
+                                             window_margin=m._window_margin, device="cuda")
+            k1.launches = k4.launches = 0
+            secs = feed_node(d, vclouds)
+            rates[way] = VARY_SCANS / secs
+            maps[way] = d.mapper.state
+            if way == "graph":
+                l1, l4 = l1 + k1.launches, l4 + k4.launches
+                stats = d.mapper._step.stats()
+                caps = sorted(sl.shape[0] for g in d.mapper._step.graphs.values()
+                              for sl in g.slots if sl.dim() == 2 and sl.shape[1] == 3)
+                print(f"phase 22 node, {VARY_SCANS} scans of {len(set(sizes.tolist()))} sizes in "
+                      f"[{VARY_POINTS[0]}, {VARY_POINTS[1]}): graphs at capacities {caps} "
+                      f"(powers of two spanned {rungs}), captures "
+                      f"{[st.capture_seconds for st in stats]!r} s, the shared pool "
+                      f"{sum(st.pool_bytes for st in stats) / 2**20!r} MiB, K1 / K4 launches "
+                      f"{k1.launches} / {k4.launches} on {card}")
+                if caps != rungs or (k1.launches, k4.launches) != (VARY_SCANS, VARY_SCANS):
+                    raise AssertionError("phase 22 node, varying sizes: graphs or launches off")
+    differ = sorted(k for k, v in maps["graph"].layers.items()
+                    if not torch.equal(v.view(torch.int32), maps["eager"].layers[k].view(torch.int32)))
+    print(f"phase 22 node, varying sizes, scans/s with the captures: {rates!r}; layers "
+          f"differing bitwise, graph (padded) against eager (unpadded): {differ} on {card}")
+    if differ:
+        raise AssertionError(f"phase 22 node, varying sizes: the maps differ on {differ}")
+    return l1, l4
+
 
 def main() -> int:
     # ---- 1. device ----
@@ -2497,6 +2855,11 @@ def main() -> int:
     add_launches(*phase_scatter_modes(card))
     add_launches(*phase_batched_replay(card))
     print(f"phase 21: {time.perf_counter() - t0!r} s")
+
+    # ---- 22. the compiled step: CUDA graphs against the eager step ----
+    t0 = time.perf_counter()
+    add_launches(*phase_graphs(card, gpu.state, ggpu.state))
+    print(f"phase 22: {time.perf_counter() - t0!r} s")
 
     k1_main = k1_ms["flagship"]
     k4_main = k4_ms["global"]

@@ -148,7 +148,7 @@ def eigvec3x3(A: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
         cand, -2, best[..., None, None].expand(*best.shape, 1, 3)
     )[..., 0, :]
     norm = sqrt_f32(_norm_sq(v))[..., None]
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
+    fallback = torch.eye(3, dtype=A.dtype, device=A.device)[2]  # e_z
     return torch.where(norm > 1e-20, v / torch.clamp_min(norm, 1e-20), fallback)
 
 

@@ -86,7 +86,7 @@ def _update_p2(q: torch.Tensor, n: torch.Tensor, count: torch.Tensor,
 
     ns = list(n2.unbind(0))
     for i in (1, 2, 3):
-        dn_i = torch.tensor(dn[i], dtype=torch.float32, device=x.device)
+        dn_i = torch.full((), dn[i], dtype=torch.float32, device=x.device)
         d = fma_f32(count0, dn_i, -ns[i])  # n'[i] - n[i]
         cond = ((d >= 1.0) & (ns[i + 1] - ns[i] > 1.0)) | (
             (d <= -1.0) & (ns[i - 1] - ns[i] < -1.0)

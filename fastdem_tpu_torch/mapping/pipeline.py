@@ -62,6 +62,7 @@ from fastdem_tpu_torch.mapping import rasterize as raster
 from fastdem_tpu_torch.ops import resample as k4
 from fastdem_tpu_torch.postprocess import raycasting as raycast
 from fastdem_tpu_torch.sensors.models import create_sensor_model
+from fastdem_tpu_torch.utils import graphs
 from fastdem_tpu_torch.utils.colors import pack_rgb
 
 log = logging.getLogger("fastdem_tpu_torch")
@@ -257,6 +258,8 @@ def build_integrate(
     window_margin: float = 2.0,
     spmd_blocks: Optional[tuple] = None,
     *,
+    jit: bool = True,
+    donate: bool = True,
     device="cuda",
 ):
     """Build the per-scan integrate step for tensors on ``device``.
@@ -285,6 +288,14 @@ def build_integrate(
     and a map the mesh divides (ValueError otherwise). ``aux.obs`` is
     None. ``parallel.sharding`` runs the blocks of a mesh and computes the
     part of a scan that does not depend on the block once per device.
+
+    ``jit`` and ``donate`` are the reference's: with ``jit`` the step on
+    CUDA tensors is captured into a CUDA graph per input signature (scan
+    capacity, channels, the rank of ``T_bs``, ``block``) and replayed, one
+    graph launch a scan (``utils/graphs.py``); with ``donate`` the state
+    passed in is consumed and the returned state is the graph's own slots,
+    updated in place. On the CPU ``jit`` runs the step as it is.
+    ``jit=False`` is the eager step, which dispatches every op from Python.
     """
     dev = resolve_device(device)
     ph = _build_phases(
@@ -309,8 +320,7 @@ def build_integrate(
             )
             return state, aux
 
-        integrate_block.scatter_mode = ph.scatter_mode
-        return integrate_block
+        return _compiled(integrate_block, jit, donate, scatter_mode=ph.scatter_mode)
 
     def integrate(state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
         # The post-move LOCAL position is pure pose arithmetic, so phase A
@@ -334,8 +344,16 @@ def build_integrate(
         )
         return state, aux
 
-    integrate.scatter_mode = ph.scatter_mode
-    return integrate
+    return _compiled(integrate, jit, donate, scatter_mode=ph.scatter_mode)
+
+
+def _compiled(fn, jit: bool, donate: bool, **attrs):
+    """``fn`` as the builders return it: captured per signature with
+    ``jit`` (``graphs.jit``), as it is without; ``attrs`` set on it."""
+    step = graphs.jit(fn, donate=donate) if jit else fn
+    for name, value in attrs.items():
+        setattr(step, name, value)
+    return step
 
 
 @dataclasses.dataclass
@@ -661,8 +679,8 @@ def _build_phases(
             cells = upd_window
         else:
             bi, bj = (int(v) for v in block)
-            br0 = torch.tensor(bi * block_shape[0], dtype=torch.int32, device=dev)
-            bc0 = torch.tensor(bj * block_shape[1], dtype=torch.int32, device=dev)
+            br0 = torch.full((), bi * block_shape[0], dtype=torch.int32, device=dev)
+            bc0 = torch.full((), bj * block_shape[1], dtype=torch.int32, device=dev)
             if windowed:
                 # Two offsets: the rasterizer and K4 take the window in
                 # global cells, phase B stores it in the block's own cells.
@@ -909,6 +927,8 @@ def build_integrate_sequence(
     has_color: bool = False,
     microbatch: int = 1,
     *,
+    jit: bool = True,
+    donate: bool = True,
     device="cuda",
     **step_kwargs,
 ):
@@ -935,6 +955,10 @@ def build_integrate_sequence(
     2^21 (ValueError), and a configuration without a batched phase A (not
     rows mode, or the sampled raycast) runs with m = 1 and a warning. The
     map equals the one-scan loop's on every layer.
+
+    ``jit`` / ``donate`` as in ``build_integrate``: one CUDA graph per (K,
+    N, channels) holds the whole K-scan call, the counterpart of the
+    reference's jitted ``lax.scan`` over the K frames.
     """
     if microbatch < 1:
         raise ValueError("microbatch must be >= 1")
@@ -947,13 +971,13 @@ def build_integrate_sequence(
                 "microbatch or the map size"
             )
         if ph.batched is not None:
-            return _replay_in_chunks(geom, cfg, ph, microbatch)
+            return _compiled(_replay_in_chunks(geom, cfg, ph, microbatch), jit, donate)
         log.warning(
             "microbatch=%d needs the 'rows' scatter path (without the sampled "
             "raycast method); running phase A scan by scan.", microbatch,
         )
     step = build_integrate(
-        geom, cfg, has_intensity, has_color, device=device, **step_kwargs
+        geom, cfg, has_intensity, has_color, jit=False, device=device, **step_kwargs
     )
 
     def integrate_sequence(
@@ -972,7 +996,7 @@ def build_integrate_sequence(
             )
         return state
 
-    return integrate_sequence
+    return _compiled(integrate_sequence, jit, donate)
 
 
 def build_integrate_fused(
@@ -987,6 +1011,8 @@ def build_integrate_fused(
     scatter_mode: str = "rows",
     voxel_count_mode: Optional[str] = None,
     *,
+    jit: bool = True,
+    donate: bool = True,
     device="cuda",
 ):
     """The K-fused replay step (the reference's ``build_integrate_fused``):
@@ -995,13 +1021,13 @@ def build_integrate_fused(
     windowed update off. In rows mode phase A is ``_Phases.batched`` (one
     row scatter, one K1 and one K4 launch for the K scans); in the other
     modes, and with the sampled raycast, it runs scan by scan before the
-    first update."""
+    first update. ``jit`` / ``donate`` as in ``build_integrate_sequence``."""
     ph = _phases_of(geom, cfg, device, dict(
         ray_num_azimuth=ray_num_azimuth, ray_range_bin_factor=ray_range_bin_factor,
         ray_max_range=ray_max_range, ray_exact_window=ray_exact_window,
         scatter_mode=scatter_mode, voxel_count_mode=voxel_count_mode,
     ), window_update=False)
-    return _replay_in_chunks(geom, cfg, ph, None)
+    return _compiled(_replay_in_chunks(geom, cfg, ph, None), jit, donate)
 
 
 class FastDEM:
@@ -1051,13 +1077,22 @@ class FastDEM:
         self.last_aux: Optional[IntegrateAux] = None
 
     def _build_step(self):
+        # Captured per signature like the reference's jitted step. Without
+        # donation, as in the reference's facade: ``state`` is public, and
+        # a caller or a driver thread may hold the previous state, which a
+        # donated step would update in place; so the graph's slots never
+        # leave the step (each call copies the state in and clones it out).
         return build_integrate(
             self.geom, self.cfg, self.has_intensity, self.has_color,
-            window_margin=self._window_margin, device=self.device,
+            window_margin=self._window_margin, jit=True, donate=False,
+            device=self.device,
         )
 
     # -- fluent setters: each rebuilds the step ------------------------------
     def _rebuild(self):
+        # The new step captures anew; the old one's graphs go now.
+        if isinstance(self._step, graphs.CompiledStep):
+            self._step.clear()
         self._step = self._build_step()
         # Estimator / raycast layer sets may change; keep existing layers.
         fills = initial_layer_fills(self.cfg, self.has_intensity, self.has_color)
@@ -1160,11 +1195,19 @@ class FastDEM:
             cloud = pc.compact_to_bucket(cloud)
         if cloud.device != self.device:
             cloud = cloud.to(self.device)
+        # The compiled step holds a graph per scan size: padding at the tail
+        # to a power of two bounds them to one per doubling. The padding is
+        # masked out, keeps the points' indices and, being at most the next
+        # power of two, the rasterizer's argmin index width, so the map is
+        # the unpadded scan's bit for bit.
+        stepped = cloud
+        if isinstance(self._step, graphs.CompiledStep):
+            stepped = pc.pad_to(cloud, pc.ladder_capacity(cloud.capacity, base=1))
 
-        intensity = cloud.channels.get("intensity") if self.has_intensity else None
+        intensity = stepped.channels.get("intensity") if self.has_intensity else None
         color_packed = None
-        if self.has_color and "color" in cloud.channels:
-            color_packed = pack_rgb(cloud.channels["color"])
+        if self.has_color and "color" in stepped.channels:
+            color_packed = pack_rgb(stepped.channels["color"])
 
         T_bs_host = _host_f32(T_base_sensor)
         self._guard_margin(T_bs_host)
@@ -1173,8 +1216,12 @@ class FastDEM:
             T_world_base, dtype=torch.float32, device=self.device
         )
         self.state, aux = self._step(
-            self.state, cloud.xyz, cloud.mask, T_bs, T_wb, intensity, color_packed
+            self.state, stepped.xyz, stepped.mask, T_bs, T_wb, intensity, color_packed
         )
+        if stepped is not cloud:
+            n = cloud.capacity
+            aux = dataclasses.replace(aux, world_xyz=aux.world_xyz[:n],
+                                      world_mask=aux.world_mask[:n], z_var=aux.z_var[:n])
         self.last_aux = aux
         self._scan_counter += 1
         if (
@@ -1232,9 +1279,10 @@ class FastDEM:
         ``T_base_sensor`` (one 4x4 or one per cloud) and ``T_world_base``
         (one per cloud); otherwise the providers are queried per cloud and
         a failed lookup drops that scan. ``batch`` is the reference's count
-        of frames per compiled call; the port's step has no compiled shape,
-        so the value is only checked. Returns the number of scans
-        integrated.
+        of frames per compiled call; here each scan replays the step's CUDA
+        graph of its capacity rounded up to a power of two
+        (``build_integrate(jit=True)``, see ``integrate``), so the value is
+        only checked. Returns the number of scans integrated.
         """
         if batch < 1:
             raise ValueError("batch must be >= 1")

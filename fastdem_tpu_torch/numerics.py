@@ -16,14 +16,14 @@ device, and a sum along a short axis adds its terms left to right
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
 def recip_f32(c: float) -> float:
     """The float32 reciprocal of the float32 constant ``c``, as a Python
     float: ``x * recip_f32(c)`` is the reference's ``x / c``."""
-    one = torch.tensor(1.0, dtype=torch.float32)
-    return float(one / torch.tensor(c, dtype=torch.float32))
+    return float(np.float32(1.0) / np.float32(c))
 
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
@@ -64,8 +64,9 @@ def dot_fma(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
 def div_f32(x: torch.Tensor, c: float) -> torch.Tensor:
     """x / c with one float32 rounding on every device. ``c`` goes in as a
     0-dim tensor on x's device: CUDA divides by a Python scalar through its
-    reciprocal, but divides tensors exactly."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    reciprocal, but divides tensors exactly. ``torch.full`` makes it on the
+    device, so the division holds no host-to-device copy."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def sum_seq(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

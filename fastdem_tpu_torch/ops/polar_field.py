@@ -15,7 +15,11 @@ tensor and runs ``polar_field_plain`` -- the same steps as plain PyTorch
 ops, mirroring the reference's XLA formulation -- for a CPU tensor. The
 kernel is built with nvcc from the repository's source at first use
 (``ops/cuda_build.py``); a build or launch failure raises. ``launches``
-counts kernel launches.
+counts kernel launches; inside a CUDA graph of a step
+(``utils/graphs.py``) each replay adds the launches its capture made. The
+kernel's host code (``cudaFuncSetAttribute``, the launch,
+``cudaGetLastError``) is legal inside a capture, and the launch into the
+capturing stream is recorded in the graph.
 
 A batch of K fields (``scat`` [K, R, A] with ``sensor_origin`` [K, 3], the
 scan-batched replay step) is one launch; each field equals the one-field
@@ -26,15 +30,19 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import sys
 
 import numpy as np
 import torch
 
 from fastdem_tpu_torch.numerics import fma_f32
 from fastdem_tpu_torch.ops import cuda_build
+from fastdem_tpu_torch.utils import graphs
 
 # Kernel launches since import (or since the caller last reset it).
 launches = 0
+# Kept true through the replays of the CUDA graphs of a step.
+graphs.count_launches(sys.modules[__name__])
 # Compile-time bound of the in-cell fold width in the kernel (nfold =
 # ceil(1 / range_bin_factor) <= 10 for every validated config).
 NFOLD_MAX = 10

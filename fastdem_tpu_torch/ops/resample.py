@@ -21,7 +21,11 @@ optional ``a1``, ``r_idx`` and bool ``in_range``).
 
 It launches the kernel (``csrc/resample.cu``) for a CUDA tensor and runs
 the plain twin for a CPU tensor; a build or launch failure raises.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches; inside a CUDA graph of a step
+(``utils/graphs.py``) each replay adds the launches its capture made. The
+kernel's host code (the launch, ``cudaGetLastError``) is legal inside a
+capture, and the launch into the capturing stream is recorded in the
+graph.
 
 A batch of K frames (the scan-batched replay step) is one launch: field
 [K, R, A], position [K, 2], sensor_origin [K, 3], window offsets int32[K],
@@ -34,6 +38,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import sys
 from typing import Optional, Tuple
 
 import numpy as np
@@ -42,9 +47,12 @@ import torch
 from fastdem_tpu_torch.grid.geometry import GridGeometry, floor_i32, to_i32
 from fastdem_tpu_torch.numerics import fma_f32, recip_f32, sqrt_f32
 from fastdem_tpu_torch.ops import cuda_build
+from fastdem_tpu_torch.utils import graphs
 
 # Kernel launches since import (or since the caller last reset it).
 launches = 0
+# Kept true through the replays of the CUDA graphs of a step.
+graphs.count_launches(sys.modules[__name__])
 
 SOURCE = cuda_build.CSRC / "resample.cu"
 # Azimuth half-width factor of a cell's angular footprint; the lookup and
@@ -185,7 +193,7 @@ def lookup_indices(
     # Cell centres o - (i + 0.5) * res, which the reference's compiler
     # contracts into one fused multiply-add inside its compiled step.
     ox, oy = geom.origin(position)
-    res = torch.tensor(c["res"], dtype=torch.float32, device=dev)
+    res = torch.full((), c["res"], dtype=torch.float32, device=dev)
     cx = fma_f32(-(rr.to(torch.float32) + 0.5), res, ox)[:, None].expand(wr, wc)
     cy = fma_f32(-(cc.to(torch.float32) + 0.5), res, oy)[None, :].expand(wr, wc)
     ddx = cx - sensor_origin[0]

@@ -19,7 +19,7 @@ import torch
 def segment_heads(keys_sorted: torch.Tensor, valid_sorted: torch.Tensor) -> torch.Tensor:
     """Boolean head flag per sorted position (first element of its run)."""
     changed = keys_sorted != torch.roll(keys_sorted, 1)
-    changed[:1] = True
+    changed[:1].fill_(True)
     return valid_sorted & changed
 
 
@@ -40,7 +40,7 @@ def segmented_scan(
     them with the op's identity first (e.g. -inf for max)."""
     if reverse:
         tails = torch.roll(heads, -1)
-        tails[-1:] = True
+        tails[-1:].fill_(True)
         return segmented_scan(op, values.flip(0), tails.flip(0)).flip(0)
     v, f = values, heads
     d = 1

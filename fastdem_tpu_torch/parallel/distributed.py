@@ -342,7 +342,9 @@ def scaling_report(
             state, _ = step(state, xyz, mask, T, T)
         return stop(t0) / scans
 
-    base_step = build_integrate(geom, cfg, device=dev)
+    # Eager, as the sharded steps still are: both sides dispatch every op
+    # from Python, so the ratio compares like with like.
+    base_step = build_integrate(geom, cfg, jit=False, device=dev)
     t_single = time_step(base_step, create_map_state(geom, cfg, device=dev), [dev])
 
     n_blocks = mesh.size

@@ -12,6 +12,8 @@ sorted value whose cumulative weight reaches p * total.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -71,6 +73,17 @@ def _weighted_quantile(values, weights, p):
     return torch.where(total > 0.0, out, float("nan"))
 
 
+@functools.lru_cache(maxsize=64)
+def _spatial_weights(search_radius, spatial_sigma, resolution, device) -> torch.Tensor:
+    """The Gaussian weight of each disk offset, f32[K] on ``device``: made
+    once per (disk, device), so a captured chain copies nothing from the
+    host."""
+    offsets = disk_offsets(search_radius, resolution)
+    d2 = offset_distances_sq(offsets, resolution)  # [K]
+    inv_2s2 = 1.0 / (2.0 * spatial_sigma * spatial_sigma)
+    return torch.tensor(np.exp(-d2 * inv_2s2), dtype=torch.float32, device=device)
+
+
 def fuse_bounds(
     upper: torch.Tensor,
     lower: torch.Tensor,
@@ -80,10 +93,8 @@ def fuse_bounds(
     """Returns (fused_upper, fused_lower); ``cfg`` is an
     ``UncertaintyFusionConfig``."""
     offsets = disk_offsets(cfg.search_radius, resolution)
-    d2 = offset_distances_sq(offsets, resolution)  # [K]
-    inv_2s2 = 1.0 / (2.0 * cfg.spatial_sigma * cfg.spatial_sigma)
-    w_spatial = torch.tensor(
-        np.exp(-d2 * inv_2s2), dtype=torch.float32, device=upper.device
+    w_spatial = _spatial_weights(
+        cfg.search_radius, cfg.spatial_sigma, resolution, upper.device
     )
 
     up_win = window_stack(upper, offsets)  # [K, H, W]

@@ -19,11 +19,21 @@ serialized around the FastDEM facade with an RLock (the facade is not
 thread-safe). All device work runs on the current stream. On a CUDA
 device the constructor builds and loads the kernels, so no intake or timer
 thread ever runs nvcc.
+
+The step and the post-processing chain are CUDA graphs on the card, as
+the reference jits both (``utils/graphs.py``): the step's graphs are
+captured inside ``FastDEM.integrate``, under the lock, and the chain is
+enqueued (and at its first call per map shape and switches, captured)
+under the lock too. So while a graph is captured no other thread of the
+node runs device work except the host reads (``interop.to_host``) and
+the next scans' staging, and those stay on the default stream, which the
+capture's own non-blocking stream does not wait for.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import logging
 import threading
@@ -42,6 +52,7 @@ from fastdem_tpu_torch.grid.gridmap import GridMapState, layers
 from fastdem_tpu_torch.interop import host_state, to_host
 from fastdem_tpu_torch.mapping.pipeline import FastDEM
 from fastdem_tpu_torch.postprocess import apply_postprocess_fn
+from fastdem_tpu_torch.utils import graphs
 
 log = logging.getLogger("fastdem_tpu_torch.runtime")
 
@@ -139,7 +150,8 @@ class MappingDriver:
         # Pluggable sinks (the 'topics'): name -> callback(payload).
         self.sinks: Dict[str, Callable[[dict], None]] = {}
         self.postprocess_result: Optional[Dict[str, np.ndarray]] = None
-        # Post-processing functions per (uf, inpaint, features).
+        # Post-processing functions per (uf, inpaint, features), each
+        # captured per map shape.
         self._pp_cache: Dict[tuple, Callable] = {}
         # Host ms of the last ticks of each timer ("postprocess", "viz",
         # "global"), measured around the tick's work.
@@ -332,27 +344,35 @@ class MappingDriver:
 
     def postprocess_fn(self, uf: bool = True, inpaint: bool = True, features: bool = True):
         """The post-processing chain with the three stages switched as
-        given and the other parameters of ``pp_cfg``."""
+        given and the other parameters of ``pp_cfg``, as the reference's
+        ``jax.jit(apply_postprocess_fn(...))``: a CUDA graph per map shape
+        on the card (``graphs.jit``), the plain chain on the CPU."""
         key = (uf, inpaint, features)
-        fn = self._pp_cache.get(key)
-        if fn is None:
-            cfg = copy.deepcopy(self.pp_cfg)
-            cfg.inpainting.enabled = inpaint
-            cfg.uncertainty_fusion.enabled = uf
-            cfg.feature_extraction.enabled = features
-            fn = apply_postprocess_fn(self.geom, cfg)
-            self._pp_cache[key] = fn
+        with self._lock:
+            fn = self._pp_cache.get(key)
+            if fn is None:
+                cfg = copy.deepcopy(self.pp_cfg)
+                cfg.inpainting.enabled = inpaint
+                cfg.uncertainty_fusion.enabled = uf
+                cfg.feature_extraction.enabled = features
+                fn = graphs.jit(apply_postprocess_fn(self.geom, cfg), donate=False)
+                self._pp_cache[key] = fn
         return fn
 
     def run_postprocess(
         self, uf: bool = True, inpaint: bool = True, features: bool = True
     ) -> Dict[str, np.ndarray]:
         """Snapshot -> UF -> inpaint -> FE -> derived uncertainty_range, on
-        the map's device; the result as host numpy arrays."""
-        snap = self.snapshot()
-        out = self.postprocess_fn(uf, inpaint, features)(
-            *(snap.layers[k] for k in SNAPSHOT_LAYERS)
-        )
+        the map's device; the result as host numpy arrays. On the card the
+        chain is enqueued under the lock, where its capture can happen (see
+        the module docstring); its outputs are fresh tensors, read back
+        after the lock is released. On the CPU nothing is captured, and the
+        chain runs outside the lock."""
+        fn = self.postprocess_fn(uf, inpaint, features)
+        on_card = self.mapper.device.type == "cuda"
+        with self._lock if on_card else contextlib.nullcontext():
+            snap = self.snapshot()
+            out = fn(*(snap.layers[k] for k in SNAPSHOT_LAYERS))
         result = to_host(out)
         self.postprocess_result = result
         self._publish("postprocess", result)

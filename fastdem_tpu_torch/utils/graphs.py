@@ -1,0 +1,358 @@
+"""The port's counterpart of ``jax.jit(fn, donate_argnums=(0,))``: a step
+captured into a CUDA graph once per input signature, then replayed.
+
+``jit(fn, donate=True)`` returns a callable with ``fn``'s signature. Its
+arguments are tensors and pytrees of them: dataclasses (``GridMapState``,
+``IntegrateAux``), dicts, tuples, lists; ``None`` and other Python values
+are constants of the signature.
+
+On CUDA tensors:
+
+* The signature is the pytree structure with its constants (which optional
+  channels are None, an ``spmd_blocks`` step's ``block=``), and every
+  tensor's shape, dtype and device. Each has its own graph.
+* The first call of a signature allocates one slot per input tensor,
+  copies the inputs in, runs ``fn`` once on the slots on a side stream
+  (the warm-up: it loads the kernels, sets their attributes and fills the
+  caching allocator; its result is dropped, and ``fn`` reads its inputs
+  without writing them), captures ``fn`` on the slots into a
+  ``torch.cuda.CUDAGraph``, and replays it once: the first call's result is
+  exactly one step.
+* A later call copies each input into its slot (not one the caller passed
+  as the slot itself) and replays.
+* ``donate``: the first output (the whole output when it is not a tuple)
+  has the structure of the first argument, and the graph writes it into
+  that argument's slots, so the returned state IS the slots and the next
+  call that passes it back copies nothing. As in JAX, the state passed in
+  is consumed: a caller that passes the slots must not expect them to keep
+  their old values. Without ``donate`` that output is cloned.
+* Every other output is cloned after the replay, so a value the caller
+  holds never changes under a later call (JAX returns fresh arrays).
+* A capture that fails raises, naming the signature; nothing falls back to
+  eager. ``fn`` must not read the device from the host (``.item()``, a
+  data-dependent shape) nor copy from host memory (``torch.tensor`` of
+  host data) inside its body.
+
+On the CPU ``fn`` runs as it is: the plain path, as for the kernels' twins.
+
+Every call of one step must enqueue on one stream (the node's threads all
+use the default stream): the graphs share their temporaries (see Memory).
+
+Captures run on a fresh non-blocking stream in the ``thread_local`` error
+mode: work that other threads put on the default stream meanwhile does not
+join the capture. The node (``runtime.driver``) still captures under its
+lock, where no other of its threads runs device work but the host reads.
+
+Kernel launch counters: a module whose kernel wrapper counts its
+launches in a module-level ``launches`` registers itself with
+``count_launches`` (the hand-written kernels' wrappers in ``ops`` do). A
+replay makes no Python call, so each graph records how many launches its
+capture made and adds them to the registered counters on every replay.
+Neither the warm-up's nor the capture's calls stay counted: the counters
+tell how often a kernel ran for a result.
+
+Memory: the graphs of one ``CompiledStep`` share one memory pool. Their
+replays are serialised by the step's lock and enqueued in call order, and
+no graph's outputs are read after another graph's replay (they are
+cloned, or written into the slots, which lie outside the pool), so a
+later capture may reuse what an earlier one freed. The pool holds each
+graph's outputs and the largest graph's temporaries; the slots are
+outside it. The number of graphs is the number of signatures the caller
+passes: the facade (``mapping.pipeline.FastDEM``) bounds it by padding
+each scan to a power of two.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import threading
+import time
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+_LEAF = "tensor"
+
+# Modules whose ``launches`` counter the graphs keep (``count_launches``).
+_COUNTED: List[Any] = []
+
+
+def count_launches(module) -> None:
+    """Keep ``module.launches`` (an int its kernel wrapper adds one to per
+    launch) true through the replays of every graph."""
+    if module not in _COUNTED:
+        _COUNTED.append(module)
+
+
+@contextlib.contextmanager
+def _counters_kept():
+    """Every registered counter as it was before the block, after it."""
+    before = [(m, m.launches) for m in _COUNTED]
+    try:
+        yield
+    finally:
+        for m, n in before:
+            m.launches = n
+
+
+def _flatten(tree) -> Tuple[Any, List[torch.Tensor]]:
+    """(structure, tensor leaves) of a pytree; the structure is hashable
+    and holds every non-tensor value."""
+    leaves: List[torch.Tensor] = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return _LEAF
+        if isinstance(x, tuple):
+            return ("tuple", tuple(walk(v) for v in x))
+        if isinstance(x, list):
+            return ("list", tuple(walk(v) for v in x))
+        if isinstance(x, dict):
+            return ("dict", tuple((k, walk(v)) for k, v in x.items()))
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return ("dataclass", type(x),
+                    tuple((f.name, walk(getattr(x, f.name))) for f in dataclasses.fields(x)))
+        hash(x)  # a constant of the signature must be hashable
+        return ("const", x)
+
+    return walk(tree), leaves
+
+
+def _unflatten(spec, leaves) -> Any:
+    """The pytree of ``spec`` with its tensors taken from ``leaves`` in
+    order."""
+    it = iter(leaves)
+
+    def build(s):
+        if s == _LEAF:
+            return next(it)
+        kind = s[0]
+        if kind == "tuple":
+            return tuple(build(v) for v in s[1])
+        if kind == "list":
+            return [build(v) for v in s[1]]
+        if kind == "dict":
+            return {k: build(v) for k, v in s[1]}
+        if kind == "dataclass":
+            return s[1](**{name: build(v) for name, v in s[2]})
+        return s[1]
+
+    return build(spec)
+
+
+@dataclasses.dataclass
+class GraphStats:
+    """What one signature's graph cost."""
+
+    capture_seconds: float  # the first call: slots, warm-up, capture, replay
+    pool_bytes: int  # device memory its capture added to the step's pool
+    slot_bytes: int  # the input slots
+    launches_per_replay: Dict[str, int]  # by counting module
+    replays: int = 0
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride() and a.dtype == b.dtype)
+
+
+class CudaGraphs:
+    """The capture primitive: ``torch.cuda.CUDAGraph`` on a side stream."""
+
+    @staticmethod
+    def applies(device: torch.device) -> bool:
+        return device.type == "cuda"
+
+    @staticmethod
+    def synchronize(device: torch.device) -> None:
+        torch.cuda.synchronize(device)
+
+    @staticmethod
+    def new_pool(device: torch.device):
+        """A memory pool for the graphs of one step."""
+        return torch.cuda.graph_pool_handle()
+
+    @staticmethod
+    def capture(device: torch.device, warm, body, pool):
+        """Run ``warm()``, then capture ``body()`` into a graph allocating
+        from ``pool``; returns the graph (``replay()`` reruns what ``body``
+        enqueued), ``body``'s result and the bytes the capture added to the
+        pool."""
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            warm()
+            side.synchronize()
+            reserved0 = torch.cuda.memory_reserved(device)
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out = body()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is invalid already; the caller reports the cause
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(side)
+        return graph, out, torch.cuda.memory_reserved(device) - reserved0
+
+
+# The capture primitive every CompiledStep uses (a test may replace it).
+BACKEND = CudaGraphs()
+
+
+class _Graph:
+    """One signature's slots, graph and outputs. The first call replays it
+    right after the capture, copying the inputs into the slots again, so
+    the call is one step whatever the capture primitive ran meanwhile."""
+
+    def __init__(self, fn, spec, leaves, spec0, n_donated, donate, label, pool):
+        dev = leaves[0].device
+        self.slots = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                      for t in leaves]
+        for s, t in zip(self.slots, leaves):
+            s.copy_(t)
+        args, kwargs = _unflatten(spec, self.slots)
+        self.per_replay: Dict[Any, int] = {}
+
+        def body():
+            before = {m: m.launches for m in _COUNTED}
+            outs = self._bind_outputs(fn(*args, **kwargs), spec0, n_donated, donate, label)
+            self.per_replay = {m: m.launches - n for m, n in before.items()}
+            return outs
+
+        warmed = []
+
+        def warm():
+            fn(*args, **kwargs)  # its result is dropped
+            warmed.append(True)
+
+        try:
+            with _counters_kept():
+                self.graph, self.outs, pool_bytes = BACKEND.capture(dev, warm, body, pool)
+        except BaseException as err:
+            if not warmed:
+                raise  # ``fn`` itself failed, as it would eagerly
+            raise RuntimeError(
+                f"CUDA graph capture of {label} failed for the signature "
+                f"{_describe(leaves)}: {type(err).__name__}: {err}"
+            ) from err
+        self.stats = GraphStats(
+            capture_seconds=0.0,
+            pool_bytes=pool_bytes,
+            slot_bytes=sum(s.numel() * s.element_size() for s in self.slots),
+            launches_per_replay={m.__name__: n for m, n in self.per_replay.items()},
+        )
+
+    def _bind_outputs(self, out, spec0, n_donated, donate, label):
+        """Inside the capture: write the donated output into its slots, and
+        keep every output apart from the input slots (an output sharing
+        memory with an input slot is cloned before any slot is written).
+        Returns the graph's outputs, flattened."""
+        self.out_spec, outs = _flatten(out)
+        dslots = self.slots[:n_donated] if donate else []
+        if donate:
+            head = out[0] if isinstance(out, tuple) else out
+            head_spec, head_leaves = _flatten(head)
+            if head_spec != spec0 or any(
+                o.shape != s.shape or o.dtype != s.dtype for o, s in zip(head_leaves, dslots)
+            ):
+                raise ValueError(
+                    f"{label}: donate=True needs the first output shaped as the first "
+                    "argument"
+                )
+        slot_ptrs = {s.untyped_storage().data_ptr() for s in self.slots}
+        # The donated output's leaves lead the flattened output; one that
+        # is its own slot stays as it is.
+        outs = [
+            o if i < len(dslots) and _same_memory(o, dslots[i])
+            else o.clone() if o.untyped_storage().data_ptr() in slot_ptrs else o
+            for i, o in enumerate(outs)
+        ]
+        for s, o in zip(dslots, outs):
+            if o is not s:
+                s.copy_(o)
+        self.donated = len(dslots)
+        return dslots + outs[len(dslots):]
+
+    def replay(self, leaves):
+        """Copy the inputs into the slots, replay, and return the outputs
+        (the donated ones as the slots, the others cloned)."""
+        for s, t in zip(self.slots, leaves):
+            if not _same_memory(s, t):
+                s.copy_(t)
+        self.graph.replay()
+        self.stats.replays += 1
+        for m, n in self.per_replay.items():
+            m.launches += n
+        outs = self.outs[: self.donated] + [o.clone() for o in self.outs[self.donated:]]
+        return _unflatten(self.out_spec, outs)
+
+
+def _describe(leaves) -> str:
+    """A readable signature: the tensors' shapes and dtypes in order."""
+    shapes = ", ".join(f"{str(t.dtype).removeprefix('torch.')}{list(t.shape)}" for t in leaves)
+    return f"({shapes}) on {leaves[0].device if leaves else 'no device'}"
+
+
+class CompiledStep:
+    """``fn`` captured per signature (see the module docstring)."""
+
+    def __init__(self, fn, donate: bool = True):
+        functools.update_wrapper(self, fn)
+        self.fn = fn
+        self.donate = donate
+        self.name = getattr(fn, "__qualname__", repr(fn))
+        self.graphs: Dict[Any, _Graph] = {}
+        self._pool = None  # the graphs' shared memory pool, made at the first capture
+        self._lock = threading.Lock()
+
+    def __call__(self, *args, **kwargs):
+        spec0, leaves0 = _flatten(args[0]) if args else (None, [])
+        spec, leaves = _flatten((args, kwargs))
+        dev = leaves[0].device if leaves else None
+        if dev is None or not BACKEND.applies(dev):
+            return self.fn(*args, **kwargs)
+        if any(t.device != dev for t in leaves):
+            raise ValueError(f"{self.name}: every tensor must be on {dev}")
+        key = (spec, tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
+        with self._lock:
+            graph = self.graphs.get(key)
+            if graph is not None:
+                return graph.replay(leaves)
+            t0 = time.perf_counter()
+            if self._pool is None:
+                self._pool = BACKEND.new_pool(dev)
+            try:
+                # The first argument's leaves lead ``leaves``.
+                graph = _Graph(self.fn, spec, leaves, spec0, len(leaves0), self.donate,
+                               self.name, self._pool)
+            except BaseException:
+                self._pool = None  # later captures start a pool of their own
+                raise
+            out = graph.replay(leaves)
+            BACKEND.synchronize(dev)
+            graph.stats.capture_seconds = time.perf_counter() - t0
+            self.graphs[key] = graph
+            return out
+
+    def stats(self) -> List[GraphStats]:
+        """One entry per captured signature, in capture order."""
+        return [g.stats for g in self.graphs.values()]
+
+    def clear(self) -> None:
+        """Drop every graph (their slots and pool go with them)."""
+        with self._lock:
+            self.graphs.clear()
+            self._pool = None
+
+
+def jit(fn, donate: bool = True) -> CompiledStep:
+    """``fn`` captured into a CUDA graph per input signature, with the first
+    argument donated (see the module docstring)."""
+    return CompiledStep(fn, donate=donate)

@@ -803,3 +803,198 @@ def test_program_cache_bundle_on_card(cuda, tmp_path):
     files = {e["file"].split("/")[0] for e in
              json.load(open(os.path.join(bundle, "manifest.json")))["libraries"]}
     assert files == {"cuda", "native"}
+
+
+def graph_session(dev, cfg, geom, jit, n_scans=6, **kw):
+    """``n_scans`` flagship-like scans through build_integrate(jit=jit) on
+    ``dev``: (state, last aux, K1 launches, K4 launches, step)."""
+    xyz, poses = replay_scans(n_scans, seed=9)
+    step = fd.build_integrate(geom, cfg, jit=jit, device=dev, **kw)
+    s = fd.create_map_state(geom, cfg, device=dev)
+    T_bs = torch.eye(4, device=dev)
+    T_bs[2, 3] = 1.0
+    mask = torch.ones(30000, dtype=torch.bool, device=dev)
+    mask[-500:] = False
+    torch.cuda.synchronize()
+    before, before4 = k1.launches, k4.launches
+    for k in range(n_scans):
+        s, aux = step(s, torch.tensor(xyz[k], device=dev), mask, T_bs,
+                      torch.tensor(poses[k], device=dev))
+    torch.cuda.synchronize()
+    return s, aux, k1.launches - before, k4.launches - before4, step
+
+
+def assert_bitwise_on_card(ref, got):
+    assert list(ref.layers) == list(got.layers)
+    for name, r in ref.layers.items():
+        np.testing.assert_array_equal(got.layers[name].cpu().numpy().view(np.int32),
+                                      r.cpu().numpy().view(np.int32), err_msg=name)
+    np.testing.assert_array_equal(got.position.cpu().numpy(), ref.position.cpu().numpy())
+
+
+GRAPH_PATHS = {
+    "flagship kalman": (15.0, "LOCAL", "KALMAN", "polar", {}, 1),
+    "flagship p2": (15.0, "LOCAL", "P2_QUANTILE", "polar", {}, 1),
+    "global windowed": (40.0, "GLOBAL", "KALMAN", "polar", {}, 1),
+    "packed": (15.0, "LOCAL", "KALMAN", "polar", {"scatter_mode": "packed"}, 1),
+    "sampled": (15.0, "LOCAL", "KALMAN", "sampled", {}, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(GRAPH_PATHS))
+def test_graph_step_equals_eager_on_card(cuda, name):
+    """build_integrate(jit=True) replays a CUDA graph per signature that
+    equals the eager step (jit=False) bit for bit on every layer and on
+    the aux; K1 and K4 count one launch per replay."""
+    length, mode, est, method, kw, per_scan = GRAPH_PATHS[name]
+    geom = fd.GridGeometry.from_length(length, length, 0.1)
+    cfg = fd.Config()
+    cfg.mapping.mode = getattr(fd.MappingMode, mode)
+    cfg.mapping.estimation_type = getattr(fd.EstimationType, est)
+    cfg.raycasting.enabled = True
+    cfg.raycasting.method = method
+    if mode == "GLOBAL":
+        cfg.point_filter.range_max = 6.0
+    ref, aux_e, e1, e4, _ = graph_session(cuda, cfg, geom, jit=False, **kw)
+    got, aux_g, g1, g4, step = graph_session(cuda, cfg, geom, jit=True, **kw)
+    assert_bitwise_on_card(ref, got)
+    for f in ("min_z", "max_z", "min_z_var", "touched"):
+        a, b = getattr(aux_e.obs, f), getattr(aux_g.obs, f)
+        assert torch.equal(a.view(torch.uint8) if a.dtype == torch.bool else a.view(torch.int32),
+                           b.view(torch.uint8) if b.dtype == torch.bool else b.view(torch.int32)), f
+    assert (e1, e4) == (g1, g4) == (6 * per_scan, 6 * per_scan)
+    (stats,) = step.stats()
+    assert stats.replays == 6 and stats.pool_bytes > 0
+    assert stats.launches_per_replay.get("fastdem_tpu_torch.ops.polar_field", 0) == per_scan
+
+
+def test_facade_graphs_per_power_of_two_on_card(cuda):
+    """Scans of eight sizes through the facade, in an order that turns
+    between three powers of two: one graph each, sharing one pool, and
+    the map equals the eager step's on the unpadded scans bit for bit."""
+    xyz, poses = replay_scans(8, seed=13)
+    sizes = (30000, 7000, 20000, 9000, 29000, 12000, 17000, 6500)
+    geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1)
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[2, 3] = 1.0
+    graph = fd.FastDEM(geom, fd.Config(), device=cuda)
+    eager = fd.FastDEM(geom, fd.Config(), device=cuda)
+    eager._step = fd.build_integrate(geom, eager.cfg, jit=False, device=cuda)
+    for k, n in enumerate(sizes):
+        for m in (graph, eager):
+            assert m.integrate(fd.cloud.from_numpy(xyz[k][:n], device=cuda), T_bs, poses[k])
+        assert graph.last_aux.world_xyz.shape == (n, 3)
+    assert_bitwise_on_card(eager.state, graph.state)
+    caps = sorted(s.shape[0] for g in graph._step.graphs.values() for s in g.slots
+                  if s.dim() == 2 and s.shape[1] == 3)
+    assert caps == [8192, 16384, 32768]
+
+
+def test_graph_replay_steps_equal_eager_on_card(cuda):
+    """Microbatch 4 and fused (K = 8), captured whole, equal their eager
+    form bit for bit; K1 and K4 once per batch through the replays."""
+    from fastdem_tpu_torch.mapping import pipeline as pl
+
+    xyz, poses = replay_scans(8)
+    cfg = fd.Config()
+    cfg.raycasting.enabled = True
+    geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1)
+    T_bs = torch.eye(4, device=cuda)
+    X = torch.tensor(np.stack(xyz), device=cuda)
+    M = torch.ones((8, 30000), dtype=torch.bool, device=cuda)
+    P = torch.tensor(poses, device=cuda)
+    for build, batches in ((lambda jit: pl.build_integrate_sequence(
+            geom, cfg, microbatch=4, jit=jit, device=cuda), 2),
+            (lambda jit: pl.build_integrate_fused(geom, cfg, jit=jit, device=cuda), 1)):
+        ref = build(False)(fd.create_map_state(geom, cfg, device=cuda), X, M, T_bs, P)
+        fn = build(True)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            before, before4 = k1.launches, k4.launches
+            got = fn(fd.create_map_state(geom, cfg, device=cuda), X, M, T_bs, P)
+            torch.cuda.synchronize()
+            assert (k1.launches - before, k4.launches - before4) == (batches, batches)
+            assert_bitwise_on_card(ref, got)
+
+
+def test_graph_chain_equals_eager_on_card(cuda):
+    """The post-processing chain as a graph (donate=False) equals the eager
+    chain bit for bit, NaN sets included, on two maps in turn; the outputs
+    of the first call do not change under the second."""
+    from fastdem_tpu_torch.postprocess import apply_postprocess_fn
+    from fastdem_tpu_torch.utils import graphs
+
+    geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1)
+    pp = fd.PostProcessConfig()
+    pp.uncertainty_fusion.enabled = True
+    pp.inpainting.enabled = True
+    pp.feature_extraction.enabled = True
+    eager = apply_postprocess_fn(geom, pp)
+    fn = graphs.jit(eager, donate=False)
+    rng = np.random.default_rng(5)
+    maps = []
+    for _ in range(2):
+        e = rng.normal(0.0, 0.2, geom.shape).astype(np.float32)
+        e[rng.random(geom.shape) < 0.3] = np.nan
+        e = torch.tensor(e, device=cuda)
+        maps.append((e, e + 0.1, e - 0.05))
+    first = fn(*maps[0])
+    kept = {k: v.clone() for k, v in first.items()}
+    second = fn(*maps[1])
+    for got, layers in ((kept, maps[0]), (second, maps[1])):
+        ref = eager(*layers)
+        for k, v in ref.items():
+            assert torch.equal(got[k].view(torch.int32), v.view(torch.int32)), k
+    for k, v in kept.items():
+        assert torch.equal(first[k].view(torch.int32), v.view(torch.int32)), k
+    assert len(fn.graphs) == 1 and fn.stats()[0].replays == 2
+
+
+def test_capture_refuses_a_host_read_on_card(cuda):
+    """A step that reads the device from the host raises on capture, naming
+    the signature; a good step captures in the same process after it."""
+    from fastdem_tpu_torch.utils import graphs
+
+    def reads(x):
+        return x * float(x.sum())
+
+    def builds(x):
+        return x + torch.tensor([1.0, 2.0], device=x.device)
+
+    x = torch.arange(2.0, device=cuda)
+    for bad in (reads, builds):
+        with pytest.raises(RuntimeError, match=r"capture of .* failed for the signature "
+                                               r"\(float32\[2\]\)"):
+            graphs.jit(bad, donate=False)(x)
+    good = graphs.jit(lambda x: x * 2.0, donate=False)
+    assert torch.equal(good(x), x * 2.0) and torch.equal(good(x + 1.0), (x + 1.0) * 2.0)
+
+
+def test_graph_block_step_equals_eager_on_card(cuda):
+    """The step of one block (``spmd_blocks``), one graph per block, equals
+    its eager form bit for bit on every block of a 2x2 map."""
+    from fastdem_tpu_torch.parallel import sharding as sh
+
+    xyz, poses = replay_scans(4, seed=10)
+    geom = fd.GridGeometry.from_length(40.0, 40.0, 0.1)
+    cfg = fd.Config()
+    cfg.mapping.mode = fd.MappingMode.GLOBAL
+    cfg.raycasting.enabled = True
+    cfg.point_filter.range_max = 6.0
+    mesh = sh.make_mesh(4, shape=(2, 2), devices=["cuda"])
+    T_bs = torch.eye(4, device=cuda)
+    mask = torch.ones(30000, dtype=torch.bool, device=cuda)
+    out = {}
+    for jit in (False, True):
+        step = fd.build_integrate(geom, cfg, spmd_blocks=mesh.shape, jit=jit, device=cuda)
+        sharded = sh.shard_state(fd.create_map_state(geom, cfg, device=cuda), mesh)
+        blocks = {slot: sharded.block(slot) for slot in mesh.slots()}
+        for k in range(4):
+            for slot in mesh.slots():
+                blocks[slot], _ = step(blocks[slot], torch.tensor(xyz[k], device=cuda), mask,
+                                       T_bs, torch.tensor(poses[k], device=cuda), block=slot)
+        out[jit] = blocks
+        if jit:
+            assert len(step.graphs) == 4
+    for slot in mesh.slots():
+        assert_bitwise_on_card(out[False][slot], out[True][slot])

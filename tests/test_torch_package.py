@@ -53,7 +53,8 @@ def test_import_leaves_jax_out():
             "fastdem_tpu_torch.io.sharded_ckpt", "fastdem_tpu_torch.runtime.aotcache",
             "fastdem_tpu_torch.tools.multihost_demo", "fastdem_tpu_torch.tools.aot_warmup",
             "fastdem_tpu_torch.utils.benchtime",
-            "fastdem_tpu_torch.utils.profiling"} <= set(modules)
+            "fastdem_tpu_torch.utils.profiling",
+            "fastdem_tpu_torch.utils.graphs"} <= set(modules)
     jax_dir = os.path.join(ROOT, "fastdem_tpu") + os.sep
     code = (
         "import importlib, os, sys; import fastdem_tpu_torch as fd; "
@@ -98,7 +99,8 @@ def test_no_jax_import_in_sources():
                 "cloud/segmentation.py", "cloud/registration.py", "utils/prng.py",
                 "native/__init__.py", "parallel/sharding.py", "parallel/distributed.py",
                 "io/sharded_ckpt.py", "runtime/aotcache.py", "tools/multihost_demo.py",
-                "tools/aot_warmup.py", "utils/benchtime.py", "utils/profiling.py"):
+                "tools/aot_warmup.py", "utils/benchtime.py", "utils/profiling.py",
+                "utils/graphs.py"):
         assert os.path.join(PACKAGE, new) in sources, new
     for path in sources:
         with open(path) as f:
