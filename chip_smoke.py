@@ -184,6 +184,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  signature; the node (sync intake, 128 scans) with graph
                  and eager steps in turns: scans/s, maps bit for bit.
                  Every earlier phase runs the default jit=True.
+ 23. last programs -- the 2x2 sharded 200 m GLOBAL map
+                 (build_sharded_integrate jit=True, donate=True: one graph
+                 a scan) against jit=False over 32 scans, every layer and
+                 the last aux bit for bit and equal to the unsharded
+                 graph step; the K = 16 sharded sequence as one graph (K1
+                 16, K4 64 per replay); LOCAL's fallback on the flagship
+                 map (the move a gather on the card) the same way; wall
+                 ms/scan in mirrored turns, device events and ms per scan,
+                 the trace's K1 / K4 events equal to the counters, capture
+                 seconds and pools; two gloo processes running the
+                 compiled sequence, byte for byte with one process; the
+                 scaling report with both sides compiled; align's fused
+                 driver against the host loop on streams of three
+                 distinct pairs near ICP 10K GN and LM, GICP 10K and
+                 VGICP 50K / 100K, every call cold (each fused call
+                 captures its own graph): bit for bit, ms per align in
+                 mirrored turns, host reads, masked passes;
+                 euclidean_cluster on three distinct clouds near 100K /
+                 500K points against a plain per-sweep loop, cold: labels
+                 equal, ms in mirrored turns, sweeps, host reads.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -212,6 +232,7 @@ from fastdem_tpu_torch.ops import polar_field as k1  # noqa: E402
 from fastdem_tpu_torch.ops import resample as k4  # noqa: E402
 from fastdem_tpu_torch.postprocess import apply_postprocess_fn, smooth_median  # noqa: E402
 from fastdem_tpu_torch.postprocess import raycasting as raycast  # noqa: E402
+from fastdem_tpu_torch.utils import profiling  # noqa: E402
 
 N_SCANS = 10
 N_POINTS = 30000
@@ -251,6 +272,9 @@ PP_MARGIN = 8
 PP_REPS = 5
 # Scans under the profiler for the device events per scan (phase 10).
 EVENT_SCANS = 8
+# Profiler windows a measurement that may run again takes when one records
+# no device event (profiling.device_profile).
+PROFILE_ATTEMPTS = 3
 # The node (phase 13) and replay (phase 14).
 NODE_SCANS = 32
 NODE_BURST = 8
@@ -317,6 +341,15 @@ GRAPH_NODE_WARM = 8
 # size drawn in [lo, hi) (three powers of two: 8,192 / 16,384 / 32,768).
 VARY_SCANS = 64
 VARY_POINTS = (6000, 30000)
+# The last compiled programs (phase 23): the sharded chain and the
+# sequence's K, the LOCAL fallback's scans; the registration and
+# clustering streams: this many distinct clouds a turn, each of the size
+# plus k times the step (k = 0, 1, ...), in four mirrored turns.
+SHARD_GRAPH_SCANS = 32
+SHARD_SEQ_K = 16
+STREAM_CLOUDS = 3
+STREAM_STEP = 1_237
+CLUSTER_POINTS = (100_000, 500_000)
 
 
 def terrain(x, y):
@@ -484,42 +517,21 @@ def cuda_median_ms(fn, reps):
     return float(np.median(times))
 
 
-def device_profile(fn, reps, top=0, counts=None):
+def device_profile(fn, reps, top=0, counts=None, attempts=1):
     """(device ms, device events, device ms by kernel name) per call of
-    ``fn``: the sum and the count of the CUDA events (kernels, copies,
-    fills) of ``reps`` calls under torch.profiler, / reps. ``top`` > 0 also
-    prints that many ops by device time; a ``counts`` dict receives the
-    events per call by name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    ``fn``: the CUDA events (kernels, copies, fills) of ``reps`` calls in
+    one padded torch.profiler window, up to ``attempts`` windows
+    (``profiling.device_profile``). ``top`` > 0 also prints that many ops
+    by device time; a ``counts`` dict receives the events per call by
+    name."""
+    ms, events, by_name, prof = profiling.device_profile(fn, reps, attempts)
     if top:
         print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=top,
                                         max_name_column_width=50))
-    total = 0.0
-    count = 0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "device_time", None)
-            t = e.cuda_time if t is None else t
-            total += t
-            count += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + t / reps / 1000.0
-            if counts is not None:
-                counts[e.name] = counts.get(e.name, 0.0) + 1.0 / reps
-    if total <= 0.0:
-        raise AssertionError("the profiler recorded no device time")
-    return total / reps / 1000.0, count / reps, by_name
-
-
-def device_ms(fn, reps):
-    """Device time per call of the kernels ``fn`` launches."""
-    return device_profile(fn, reps)[0]
+    if counts is not None:
+        for name, (n, _) in by_name.items():
+            counts[name] = counts.get(name, 0.0) + n
+    return ms, events, {name: t for name, (_, t) in by_name.items()}
 
 
 def time_pair(what, fn_kernel, fn_plain, reps=200, plain_reps=50):
@@ -530,8 +542,8 @@ def time_pair(what, fn_kernel, fn_plain, reps=200, plain_reps=50):
         for _ in range(5):
             fn()
     torch.cuda.synchronize()
-    ms, _, by_name = device_profile(fn_kernel, reps)
-    plain_ms = device_ms(fn_plain, plain_reps)
+    ms, _, by_name = device_profile(fn_kernel, reps, attempts=PROFILE_ATTEMPTS)
+    plain_ms = device_profile(fn_plain, plain_reps, attempts=PROFILE_ATTEMPTS)[0]
     lat, plain_lat = cuda_median_ms(fn_kernel, reps), cuda_median_ms(fn_plain, plain_reps)
     print(f"{what}: kernel {ms!r} ms, plain twin {plain_ms!r} ms (device time "
           f"per call, torch.profiler); per-call latency kernel {lat!r} ms, plain "
@@ -815,7 +827,7 @@ def resample_indices_events():
                                                window=window))
         fn()
         torch.cuda.synchronize()
-        out[label] = device_profile(fn, 5)[1]
+        out[label] = device_profile(fn, 5, attempts=PROFILE_ATTEMPTS)[1]
     return out
 
 
@@ -878,7 +890,7 @@ def time_chain(what, geom, pp, layers, card, top=0):
     run()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    dev_ms, events, _ = device_profile(run, PP_REPS, top)
+    dev_ms, events, _ = device_profile(run, PP_REPS, top, attempts=PROFILE_ATTEMPTS)
     walls = []
     for _ in range(PP_REPS):
         torch.cuda.synchronize()
@@ -1751,7 +1763,9 @@ def phase_cloud(card, dev="cuda"):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = registration.align(s_c, t_c, method="icp", optimizer="lm")
+        # The host driver: a replayed graph (the fused driver) makes no
+        # Python call per pass to time.
+        res = registration.align(s_c, t_c, method="icp", optimizer="lm", driver="host")
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3
     finally:
@@ -2391,7 +2405,7 @@ def phase_batched_replay(card):
     # ---- f. events, device ms and wall ms per scan, in alternating turns ----
     for what, fn in runners.items():
         fn_one = (lambda fn=fn: run(fn, n=FUSED_K))
-        ms, events, _ = device_profile(fn_one, 1)
+        ms, events, _ = device_profile(fn_one, 1, attempts=PROFILE_ATTEMPTS)
         print(f"phase 21 {what}: {events / FUSED_K!r} device events per scan, "
               f"{ms / FUSED_K!r} device ms per scan (torch.profiler over {FUSED_K} scans) "
               f"on {card}")
@@ -2430,7 +2444,7 @@ def graph_paths():
     )
 
 
-def graph_turns(what, runners, card, n_scans, unit="scan"):
+def graph_turns(what, runners, card, n_scans, unit="scan", phase="phase 22"):
     """Wall ms per scan (``unit``) of each runner (a thunk over the whole
     chain from a fresh state), in alternating turns: CUDA events and the
     host clock."""
@@ -2449,14 +2463,14 @@ def graph_turns(what, runners, card, n_scans, unit="scan"):
             walls[k].append((start.elapsed_time(end) / n_scans,
                              (time.perf_counter() - t0) * 1e3 / n_scans))
     for k, ms in walls.items():
-        print(f"phase 22 {what} {k}: wall ms/{unit} over {n_scans} {unit}s in alternating "
+        print(f"{phase} {what} {k}: wall ms/{unit} over {n_scans} {unit}s in alternating "
               f"turns (CUDA events, host clock): {ms!r} on {card}")
     return walls
 
 
-def graph_stats(what, step, card):
+def graph_stats(what, step, card, phase="phase 22"):
     for st in step.stats():
-        print(f"phase 22 {what}: capture {st.capture_seconds!r} s (slots, warm-up, capture, "
+        print(f"{phase} {what}: capture {st.capture_seconds!r} s (slots, warm-up, capture, "
               f"first replay), graph pool {st.pool_bytes / 2**20!r} MiB, slots "
               f"{st.slot_bytes / 2**20!r} MiB, launches per replay "
               f"{st.launches_per_replay}, replays {st.replays} on {card}")
@@ -2466,17 +2480,17 @@ KERNEL_EVENTS = {"K1 column": "polar_column_kernel", "K1 row": "polar_row_kernel
                  "K4": "lookup_kernel"}
 
 
-def kernels_seen(what, counts, per_call):
+def kernels_seen(what, counts, per_call, phase="phase 22"):
     """The K1 / K4 kernel events per call in a trace (``device_profile``'s
     ``counts``) against ``per_call`` (K1, K4), the launches the counters
     gave over the same calls; prints the trace's numbers."""
     seen = {k: sum(n for name, n in counts.items() if ev in name)
             for k, ev in KERNEL_EVENTS.items()}
-    print(f"phase 22 {what}: kernel events per call in the trace {seen!r}, launches per "
+    print(f"{phase} {what}: kernel events per call in the trace {seen!r}, launches per "
           f"call by the counters K1 {per_call[0]!r}, K4 {per_call[1]!r}")
     want = {"K1 column": per_call[0], "K1 row": per_call[0], "K4": per_call[1]}
     if any(abs(seen[k] - want[k]) > 1e-9 for k in want):
-        raise AssertionError(f"phase 22 {what}: the trace's K1 / K4 kernels {seen} differ "
+        raise AssertionError(f"{phase} {what}: the trace's K1 / K4 kernels {seen} differ "
                              f"from the counters' {want}")
     return seen
 
@@ -2642,7 +2656,8 @@ def phase_graphs(card, flagship_state, global_state):
         graph_turns(what, {k: (lambda f=f: f(*layers)) for k, f in fns.items()}, card, 1,
                     unit="chain")
         for k, fn in fns.items():
-            ms, events, _ = device_profile(lambda fn=fn: fn(*layers), PP_REPS)
+            ms, events, _ = device_profile(lambda fn=fn: fn(*layers), PP_REPS,
+                                           attempts=PROFILE_ATTEMPTS)
             print(f"phase 22 {what} {k}: {events!r} device events, {ms!r} device ms per "
                   f"chain (torch.profiler over {PP_REPS}) on {card}")
         graph_stats(what, fns["graph"], card)
@@ -2720,6 +2735,343 @@ def phase_graphs(card, flagship_state, global_state):
           f"differing bitwise, graph (padded) against eager (unpadded): {differ} on {card}")
     if differ:
         raise AssertionError(f"phase 22 node, varying sizes: the maps differ on {differ}")
+    return l1, l4
+
+
+def sharded_aux_equal(what, eager, graph):
+    """The sharded step's last aux, graph against eager, bit for bit."""
+    pairs = [(f, getattr(eager, f), getattr(graph, f))
+             for f in ("world_xyz", "world_mask", "z_var", "oow_points")]
+    bad = [f for f, a, b in pairs if (a is None) != (b is None) or a is not None and not
+           torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))]
+    if bad:
+        raise AssertionError(f"{what}: the graph's aux differs from eager on {bad}")
+
+
+def sharded_graph_path(what, card, mesh, geom, cfg, scans, T_bs, poses, unsharded_ok=True):
+    """One sharded path's step, graph against eager over the whole session:
+    bit for bit (and equal to the unsharded graph step), K1 / K4 counted
+    once per scan / per block per scan, timed in turns, profiled, its
+    graphs' stats. Returns (K1, K4) of the graph run and the graph step."""
+    from fastdem_tpu_torch.parallel import sharding as sh
+
+    ph = "phase 23"
+    dev = torch.device("cuda")
+    n = len(poses)
+    X = [torch.tensor(x, device=dev) for x in scans]
+    P = [torch.tensor(T, device=dev) for T in poses]
+    TB = torch.tensor(T_bs, device=dev)
+    M = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
+    steps = {"eager": sh.build_sharded_integrate(geom, cfg, mesh, jit=False)[0],
+             "graph": sh.build_sharded_integrate(geom, cfg, mesh)[0]}
+    print(f"{ph} {what}: formulation {steps['graph'].formulation}, compiled "
+          f"{steps['graph'].compiled} (eager: {steps['eager'].compiled})")
+    if steps["graph"].compiled != "whole":
+        raise AssertionError(f"{ph} {what}: the scan is not one graph")
+
+    def chain(step, ks=range(n)):
+        state = sh.shard_state(fd.create_map_state(geom, cfg, device="cuda"), mesh)
+        aux = None
+        for k in ks:
+            state, aux = step(state, X[k], M, TB, P[k])
+        return state, aux
+
+    ref, aux_e = chain(steps["eager"])
+    torch.cuda.synchronize()
+    k1.launches = k4.launches = 0
+    got, aux_g = chain(steps["graph"])
+    torch.cuda.synchronize()
+    l1, l4 = k1.launches, k4.launches
+    print(f"{ph} {what}: {n} scans through the graph, K1 launches {l1}, K4 launches {l4}")
+    if (l1, l4) != (n, 4 * n):
+        raise AssertionError(f"{ph} {what}: K1 / K4 not counted once per scan / block")
+    assert_bitwise(f"{ph} {what} graph == eager", sh.gather_state(ref), sh.gather_state(got))
+    sharded_aux_equal(f"{ph} {what}", aux_e, aux_g)
+    one = fd.build_integrate(geom, cfg, device="cuda")
+    s1 = fd.create_map_state(geom, cfg, device="cuda")
+    for k in range(n):
+        s1, _ = one(s1, X[k], M, TB, P[k])
+    assert_bitwise(f"{ph} {what} graph == unsharded graph step", s1, sh.gather_state(got))
+    del ref, got, s1, one
+    graph_turns(what, {k: (lambda s=s: chain(s)) for k, s in steps.items()}, card, n, phase=ph)
+    for k, step in steps.items():
+        state = [chain(step, range(GRAPH_PROFILE_SCANS))[0]]
+        it = iter(range(GRAPH_PROFILE_SCANS, 2 * GRAPH_PROFILE_SCANS))
+
+        def one_scan(step=step, state=state, it=it):
+            k_ = next(it)
+            state[0], _ = step(state[0], X[k_], M, TB, P[k_])
+
+        counts = {}
+        k1.launches = k4.launches = 0
+        ms, events, _ = device_profile(one_scan, GRAPH_PROFILE_SCANS, counts=counts)
+        print(f"{ph} {what} {k}: {events!r} device events per scan, {ms!r} device ms per "
+              f"scan (torch.profiler over {GRAPH_PROFILE_SCANS} scans) on {card}")
+        kernels_seen(f"{what} {k}", counts, (k1.launches / GRAPH_PROFILE_SCANS,
+                                             k4.launches / GRAPH_PROFILE_SCANS), phase=ph)
+    for g in steps["graph"].per_device.values():
+        graph_stats(what, g, card, phase=ph)
+    return l1, l4, steps["graph"]
+
+
+def cluster_per_sweep(cloud, tolerance, per_bucket=16, max_sweeps=64):
+    """Euclidean clustering as a plain loop that reads the ``changed`` flag
+    after every sweep, on the port's candidate search: (labels, sweeps).
+    The reference of the sweep blocks in ``euclidean_cluster``."""
+    from fastdem_tpu_torch.cloud.search import BucketGrid
+
+    xyz, mask = cloud.xyz, cloud.mask
+    n = cloud.capacity
+    cand, cvalid = BucketGrid(xyz, mask, tolerance).candidates(xyz, per_bucket)
+    cand = cand.long()
+    diff = xyz[cand.clamp_min(0)] - xyz[:, None, :]
+    sq = diff * diff
+    d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]  # left to right, as euclidean_cluster
+    cand = torch.where(cvalid & (d2 <= float(np.float32(tolerance * tolerance)))
+                       & mask[:, None], cand, n)
+    ar = torch.arange(n, device=xyz.device)
+    labels = torch.where(mask, ar, n)
+    tail = torch.tensor([n], device=xyz.device)
+    sweeps = 0
+    for _ in range(max_sweeps):
+        lab_ext = torch.cat([labels, tail])
+        new = torch.minimum(labels, lab_ext[cand].amin(dim=1))
+        new = torch.minimum(new, lab_ext[new.clamp_max(n - 1)])
+        sweeps += 1
+        changed = bool((new != labels).any())
+        labels = new
+        if not changed:
+            break
+    root = mask & (labels == ar)
+    compact = torch.cumsum(root.to(torch.int64), 0) - 1
+    return torch.where(mask, compact[labels.clamp(0, n - 1)], -1).to(torch.int32), sweeps
+
+
+def align_stream(card, ph):
+    """align's fused driver against its host loop on a stream of distinct
+    pairs (sizes and targets), every call cold: the fused driver captures
+    its graph in each call and drops it on return. Turns host, fused,
+    fused, host over the same pairs."""
+    from fastdem_tpu_torch.cloud import registration as reg
+    from fastdem_tpu_torch.tools.common import registration_pair
+
+    dev = torch.device("cuda")
+    cases = [("icp", "gn", ICP_POINTS, {}), ("icp", "lm", ICP_POINTS, {}),
+             ("gicp", "lm", ICP_POINTS, {})] + [
+        ("vgicp", "lm", n, dict(voxel_size=1.0, knn_method="grid")) for n in VGICP_POINTS]
+    for method, opt, n0, extra in cases:
+        sizes = [n0 + k * STREAM_STEP for k in range(STREAM_CLOUDS)]
+        pairs = []
+        for n in sizes:
+            src, tgt, _ = registration_pair(n, seed=n)
+            pairs.append((fd.cloud.from_numpy(src, device=dev),
+                          fd.cloud.from_numpy(tgt, device=dev)))
+        kw = dict(method=method, optimizer=opt, **extra)
+        results, times, counts = {}, {"host": [], "fused": []}, {}
+        for way in ("host", "fused", "fused", "host"):
+            for k, (s_c, t_c) in enumerate(pairs):
+                reg.host_reads = reg.passes_run = reg.passes_used = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = reg.align(s_c, t_c, driver=way, **kw)
+                torch.cuda.synchronize()
+                times[way].append((time.perf_counter() - t0) * 1e3)
+                counts[way, k] = (reg.host_reads, reg.passes_run, reg.passes_used)
+                prev = results.setdefault(k, r)
+                same = (np.array_equal(r.T.view(np.int32), prev.T.view(np.int32))
+                        and (r.error, r.iterations, r.converged, r.num_correspondences)
+                        == (prev.error, prev.iterations, prev.converged,
+                            prev.num_correspondences))
+                if not same:
+                    raise AssertionError(f"{ph} align {method} {sizes[k]} ({opt}) {way}: "
+                                         "differs from the host loop")
+        for k, n in enumerate(sizes):
+            (h_reads, _, h_passes), (reads, run, used) = counts["host", k], counts["fused", k]
+            print(f"{ph} align {method} {n} ({opt}): {results[k].iterations} iterations, "
+                  f"converged {results[k].converged}, {h_passes} correspondence passes; fused "
+                  f"bit for bit with the host loop; host reads per align host {h_reads}, fused "
+                  f"{reads}; fused passes run {run} (masked after done {run - used})")
+            if used != h_passes or run != used or reads != used:
+                raise AssertionError(f"{ph} align {method} {n}: fused passes off")
+        print(f"{ph} align {method} {n0}+ ({opt}) stream of {STREAM_CLOUDS} distinct pairs, "
+              f"every call cold, turns host / fused / fused / host: ms per align host "
+              f"{times['host']!r}, fused {times['fused']!r}; medians host "
+              f"{float(np.median(times['host']))!r}, fused {float(np.median(times['fused']))!r} "
+              f"on {card}")
+        del pairs
+    torch.cuda.empty_cache()
+
+
+def cluster_stream(card, ph):
+    """euclidean_cluster's sweep blocks against the plain per-sweep loop on
+    distinct clouds near each size, every call cold. Turns loop, blocks,
+    blocks, loop."""
+    from fastdem_tpu_torch.cloud import segmentation as segm
+    from fastdem_tpu_torch.tools.common import make_cloud_np
+
+    dev = torch.device("cuda")
+    for n0 in CLUSTER_POINTS:
+        clouds = []
+        for k in range(STREAM_CLOUDS):
+            n = n0 + k * STREAM_STEP
+            xyz = make_cloud_np(n, np.random.default_rng(n), spread=20.0 * (n / 100_000) ** 0.5)
+            clouds.append(fd.cloud.from_numpy(xyz, device=dev))
+        labels, times, counts = {}, {"loop": [], "blocks": []}, {}
+        for way in ("loop", "blocks", "blocks", "loop"):
+            for k, cloud in enumerate(clouds):
+                segm.host_reads = segm.sweeps = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if way == "loop":
+                    got, loop_sweeps = cluster_per_sweep(cloud, tolerance=0.5)
+                else:
+                    got = segm.euclidean_cluster(cloud, tolerance=0.5)
+                torch.cuda.synchronize()
+                times[way].append((time.perf_counter() - t0) * 1e3)
+                counts[way, k] = ((loop_sweeps, loop_sweeps) if way == "loop"
+                                  else (segm.host_reads, segm.sweeps))
+                if not torch.equal(labels.setdefault(k, got), got):
+                    raise AssertionError(f"{ph} euclidean_cluster {cloud.capacity}: the sweep "
+                                         "blocks differ from the per-sweep loop")
+        for k, cloud in enumerate(clouds):
+            (l_reads, l_sweeps), (reads, sweeps) = counts["loop", k], counts["blocks", k]
+            print(f"{ph} euclidean_cluster {cloud.capacity} points: {sweeps} sweeps "
+                  f"({l_sweeps} in the loop), host reads blocks {reads} / loop {l_reads}, "
+                  f"{int(labels[k].max()) + 1} clusters, labels equal")
+            if sweeps != l_sweeps:
+                raise AssertionError(f"{ph} euclidean_cluster: sweeps off")
+        print(f"{ph} euclidean_cluster {n0}+ stream of {STREAM_CLOUDS} distinct clouds, every "
+              f"call cold, turns loop / blocks / blocks / loop: ms loop {times['loop']!r}, "
+              f"blocks {times['blocks']!r}; medians loop {float(np.median(times['loop']))!r}, "
+              f"blocks {float(np.median(times['blocks']))!r} on {card}")
+        del clouds, labels
+    torch.cuda.empty_cache()
+
+
+def phase_last_programs(card):
+    """Phase 23: the block-sharded step and sequence and LOCAL's fallback
+    as CUDA graphs against their eager form, two processes and the scaling
+    report compiled, registration's fused driver against its host loop and
+    clustering's sweep blocks against the per-sweep loop. Returns the K1
+    and K4 launches of the graph runs."""
+    import tempfile
+
+    from fastdem_tpu_torch.io.npz import save_npz
+    from fastdem_tpu_torch.parallel import sharding as sh
+    from fastdem_tpu_torch.parallel.distributed import scaling_report
+
+    ph = "phase 23"
+    dev = torch.device("cuda")
+    mesh = sh.make_mesh(4, shape=(2, 2), devices=["cuda"])
+    ggeom, gcfg = global_geom(), global_config()
+
+    # ---- a. the windowed step: 32 scans, 2x2 on the card ----
+    gscans, gT_bs, gposes = global_session_scans(SHARD_GRAPH_SCANS, seed=89)
+    l1, l4, gstep = sharded_graph_path("sharded windowed 2x2", card, mesh, ggeom, gcfg,
+                                       gscans, gT_bs, gposes)
+
+    # ---- b. the sequence: K scans as one graph ----
+    K = SHARD_SEQ_K
+    XS = torch.tensor(np.asarray(gscans[:K]), device=dev)
+    PS = torch.tensor(np.stack(gposes[:K]), device=dev)
+    TB = torch.tensor(gT_bs, device=dev)
+    MS = torch.ones((K, N_POINTS), dtype=torch.bool, device=dev)
+    seqs = {"eager": sh.build_sharded_integrate_sequence(ggeom, gcfg, mesh, jit=False)[0],
+            "graph": sh.build_sharded_integrate_sequence(ggeom, gcfg, mesh)[0]}
+
+    def seq_run(fn):
+        return fn(sh.shard_state(fd.create_map_state(ggeom, gcfg, device="cuda"), mesh),
+                  XS, MS, TB, PS)
+
+    ref = seq_run(seqs["eager"])
+    for call in range(2):
+        torch.cuda.synchronize()
+        k1.launches = k4.launches = 0
+        got = seq_run(seqs["graph"])
+        torch.cuda.synchronize()
+        print(f"{ph} sharded sequence K = {K} ({seqs['graph'].compiled}), call {call + 1}: K1 "
+              f"launches {k1.launches}, K4 launches {k4.launches} per replay")
+        if (k1.launches, k4.launches) != (K, 4 * K):
+            raise AssertionError(f"{ph} sequence: want K1 {K} and K4 {4 * K} per replay")
+        l1, l4 = l1 + k1.launches, l4 + k4.launches
+        assert_bitwise(f"{ph} sharded sequence graph == eager", sh.gather_state(ref),
+                       sh.gather_state(got))
+    loop = sh.shard_state(fd.create_map_state(ggeom, gcfg, device="cuda"), mesh)
+    for k in range(K):
+        loop, _ = gstep(loop, XS[k], MS[k], TB, PS[k])
+    assert_bitwise(f"{ph} sharded sequence graph == the graph step loop",
+                   sh.gather_state(loop), sh.gather_state(got))
+    del ref, got, loop
+    graph_turns(f"sharded sequence K = {K}", {k: (lambda f=f: seq_run(f)) for k, f in seqs.items()},
+                card, K, phase=ph)
+    for k, fn in seqs.items():
+        counts = {}
+        k1.launches = k4.launches = 0
+        ms, events, _ = device_profile(lambda fn=fn: seq_run(fn), 1, counts=counts)
+        print(f"{ph} sharded sequence K = {K} {k}: {events / K!r} device events per scan, "
+              f"{ms / K!r} device ms per scan (torch.profiler over one call) on {card}")
+        kernels_seen(f"sharded sequence {k}", counts, (k1.launches, k4.launches), phase=ph)
+    for g in seqs["graph"].per_device.values():
+        graph_stats(f"sharded sequence K = {K}", g, card, phase=ph)
+    del seqs
+    torch.cuda.empty_cache()
+
+    # ---- c. LOCAL's fallback on the flagship map, moves across blocks ----
+    lscans, lT_bs, lposes = make_session(SHARD_GRAPH_SCANS, seed=97)
+    a1, a4, _ = sharded_graph_path("sharded LOCAL fallback 2x2 (flagship)", card, mesh,
+                                   flagship_geom(), flagship_config(), lscans, lT_bs, lposes)
+    l1, l4 = l1 + a1, l4 + a4
+    cells = np.round((np.asarray(lposes)[-1][:2, 3] - np.asarray(lposes)[0][:2, 3]) / 0.1)
+    print(f"{ph} sharded LOCAL fallback: the map moved {cells.tolist()} cells over the session "
+          f"(blocks of 75x75 cells)")
+    torch.cuda.empty_cache()
+
+    # ---- d. two gloo processes, the compiled sequence, against one process ----
+    with tempfile.TemporaryDirectory() as tmp:
+        scans_npz, mh, one = (os.path.join(tmp, f) for f in ("scans.npz", "mh.npz", "one.npz"))
+        np.savez(scans_npz, xyz=np.asarray(gscans[:K]), T_bs=gT_bs, T_wb=np.stack(gposes[:K]))
+        t0 = time.perf_counter()
+        logs = run_worker_pair(
+            ["--local-blocks", "2", "--scans-npz", scans_npz, "--batched", "1",
+             "--map-size", repr(ggeom.rows * ggeom.resolution),
+             "--resolution", repr(ggeom.resolution), "--range", repr(GLOBAL_RANGE),
+             "--out", mh, "--device", "cuda"], TOOL_TIMEOUT_S)
+        print(f"{ph} two gloo processes, the compiled sequence: "
+              f"{time.perf_counter() - t0!r} s wall")
+        lines = [ln for log in logs for ln in log.splitlines() if ln.startswith("[mh]")]
+        print("\n".join(lines))
+        if sum("(whole)" in ln for ln in lines) != 2:
+            raise AssertionError(f"{ph}: the workers did not run whole-scan graphs")
+        state = sh.shard_state(fd.create_map_state(ggeom, gcfg, device="cuda"), mesh)
+        for k in range(K):
+            state, _ = gstep(state, XS[k], MS[k], TB, PS[k])
+        if not save_npz(one, ggeom, sh.gather_state(state)):
+            raise AssertionError(f"{ph}: save_npz failed")
+        with open(mh, "rb") as f1, open(one, "rb") as f2:
+            same = f1.read() == f2.read()
+        print(f"{ph} two-process compiled save_sharded_npz == save_npz of the one-process "
+              f"compiled map, byte for byte: {same} ({os.path.getsize(mh)} bytes)")
+        if not same:
+            raise AssertionError(f"{ph}: the two-process map differs")
+    del state, gstep
+    torch.cuda.empty_cache()
+
+    # ---- e. the scaling report, both sides compiled ----
+    for mode, geom in (("strong", ggeom),
+                       ("weak", fd.GridGeometry.from_length(100.0, 100.0, 0.1))):
+        rep = scaling_report(geom, gcfg, scans=SHARD_SCANS, points=N_POINTS, mode=mode,
+                             mesh=mesh, device="cuda")
+        print(f"{ph} scaling_report {mode}, both sides compiled, 4 blocks on one card (an "
+              f"overhead probe): {json.dumps(rep)} on {card}")
+        if rep["compiled"] != "whole":
+            raise AssertionError(f"{ph}: the scaling report's sharded side is not compiled")
+    torch.cuda.empty_cache()
+
+    # ---- f. registration: the fused driver against the host loop ----
+    align_stream(card, ph)
+
+    # ---- g. clustering: blocks of sweeps against the per-sweep loop ----
+    cluster_stream(card, ph)
     return l1, l4
 
 
@@ -2860,6 +3212,12 @@ def main() -> int:
     t0 = time.perf_counter()
     add_launches(*phase_graphs(card, gpu.state, ggpu.state))
     print(f"phase 22: {time.perf_counter() - t0!r} s")
+
+    # ---- 23. the last compiled programs: the sharded step and sequence,
+    # registration's fused driver, clustering's sweep blocks ----
+    t0 = time.perf_counter()
+    add_launches(*phase_last_programs(card))
+    print(f"phase 23: {time.perf_counter() - t0!r} s")
 
     k1_main = k1_ms["flagship"]
     k4_main = k4_ms["global"]

@@ -28,11 +28,21 @@ The GPU form:
     reference; the weights, Jacobians and sums over the points (H, g, the
     error) are float64, and so are the damped 6x6 solve and the
     retraction, whose transform rounds to float32;
-  * ``align`` is a host loop with one read per iteration (the error, the
-    correspondence count and the step), as the reference's host driver.
-    Its ``driver="fused"`` (one ``lax.while_loop`` program per align)
-    answers a TPU dispatch cost; here "host" and "fused" run the same loop
-    (a CUDA graph of it is later work).
+  * ``align``'s ``driver="fused"`` keeps the loop's control flow on the
+    device, the counterpart of the reference's ``lax.while_loop``
+    program: the transform, lambda, the error, the correspondence count,
+    the iteration count and the converged / done flags are device
+    tensors, and one correspondence pass (a GN iteration, or LM's
+    linearization or one of its lambda trials) is a unit that leaves them
+    unchanged once done is set. The units run in blocks of
+    ``_FUSED_BLOCK`` with one host read per block (done and the results):
+    the first block eagerly, the later ones as one CUDA graph on a card,
+    captured for the call and dropped with it. A block of one unit runs
+    no pass after done; the card's PyTorch exposes no conditional graph
+    node that would skip the masked units of a longer block (counted in
+    ``passes_run`` against ``passes_used``). ``driver="host"``, the
+    default, is the reference's host driver: one read per iteration or LM
+    trial, and no capture. Both give the same result bit for bit.
   * the stall test follows nanoPCL's ``criteria.hpp``: a previous error
     <= 0 counts as stalled. The reference's Python divides by
     ``max(prev_err, 1e-30)`` and does not stall there.
@@ -51,12 +61,20 @@ from fastdem_tpu_torch.cloud.filters import voxel_key
 from fastdem_tpu_torch.cloud.pointcloud import PointCloud
 from fastdem_tpu_torch.grid.geometry import floor_i32
 from fastdem_tpu_torch.numerics import div_f32, dot_fma, recip_f32, sqrt_f32, sum_sq
+from fastdem_tpu_torch.utils import graphs
 
 _I32_MAX = 2**31 - 1
 # Bytes one correspondence tile may take (its float64 FMA steps included),
 # and the bytes per tile entry those steps hold at once.
 _TILE_BYTES = {"cuda": 1 << 30, "cpu": 1 << 26}
 _BYTES_PER_ENTRY = 40
+
+# Counted by ``align`` (reset them to 0 to count a span): host reads of the
+# loop's values, and correspondence passes run / needed for the result
+# (the fused driver's masked passes are the difference).
+host_reads = 0
+passes_run = 0
+passes_used = 0
 
 
 @dataclasses.dataclass
@@ -200,11 +218,11 @@ def _gn_step_factory(method: str, kernel: str, kernel_scale: float,
     def correspond(src, s_mask, t_xyz, t_mask, vox):
         if corr == "voxel_dense":
             nx, ny, nz = corr_dims
-            dims = torch.tensor([nx, ny, nz], dtype=torch.int32, device=src.device)
             c = floor_i32((src - vox[None, :]) * inv_voxel)
-            inb = ((c >= 0) & (c < dims)).all(dim=1)
-            cc = torch.minimum(torch.clamp_min(c, 0), dims - 1).to(torch.int64)
-            key = (cc[:, 0] * ny + cc[:, 1]) * nz + cc[:, 2]
+            inb = (c >= 0).all(dim=1) & (c[:, 0] < nx) & (c[:, 1] < ny) & (c[:, 2] < nz)
+            cc = torch.clamp_min(c, 0).to(torch.int64)
+            key = ((cc[:, 0].clamp_max(nx - 1) * ny + cc[:, 1].clamp_max(ny - 1)) * nz
+                   + cc[:, 2].clamp_max(nz - 1))
             return key, s_mask & inb & t_mask[key]
         if corr == "voxel":
             key = voxel_key(floor_i32(src * inv_voxel))
@@ -406,6 +424,113 @@ def _stalled(prev_err: float, cur_err: float, relative_error_eps: float) -> bool
     return bool(np.abs(prev - cur) / prev < np.float32(relative_error_eps))
 
 
+def _small_t(delta: torch.Tensor, translation_eps: float, rotation_eps: float):
+    """``_small`` on the device (float32, the squares summed left to right)."""
+    d2 = delta * delta
+    return ((torch.sqrt(d2[0] + d2[1] + d2[2]) < float(np.float32(translation_eps)))
+            & (torch.sqrt(d2[3] + d2[4] + d2[5]) < float(np.float32(rotation_eps))))
+
+
+def _stalled_t(prev: torch.Tensor, cur: torch.Tensor, relative_error_eps: float):
+    """``_stalled`` on the device (float32)."""
+    return (prev <= 0) | (torch.abs(prev - cur) / prev < float(np.float32(relative_error_eps)))
+
+
+def _gn_unit(fns, c):
+    """One Gauss-Newton iteration of the fused driver, on the device: the
+    host loop's body with its branches as selections."""
+    step = fns[0]
+
+    def unit(s, args):
+        T_new, delta, err_t, n_t = step(s["T"], 1e-6, *args)
+        err = err_t.float()
+        fail = n_t < c["min_correspondences"]
+        conv = ~fail & (_small_t(delta, c["translation_eps"], c["rotation_eps"])
+                        | _stalled_t(s["prev"], err, c["relative_error_eps"]))
+        it = s["it"] + (~fail).to(torch.int64)
+        return dict(s, T=torch.where(fail, s["T"], T_new), err=err, n=n_t, it=it, prev=err,
+                    converged=conv, done=fail | conv | (it >= c["max_iterations"]))
+
+    return unit
+
+
+def _lm_unit(fns, c):
+    """One pass of adaptive LM on the device: phase 0 evaluates the error at
+    the start, phase 1 linearizes at T (the start of an iteration), phase 2
+    tries one lambda. Each is one correspondence pass, as in the host loop
+    (the linearization at the trial transform also gives the trial's
+    error)."""
+    _, _, linearize, solve_retract = fns
+    lf = float(c["lambda_factor"])
+
+    def unit(s, args):
+        phase = s["phase"]
+        T_try, delta_try = solve_retract(s["H"], s["g"], s["T"], s["lam"])
+        trial = phase == 2
+        H, g, err_t, n_t = linearize(torch.where(trial, T_try, s["T"]), *args)
+        err = err_t.float()
+        # Phase 0: the starting error. Phase 1: a new iteration.
+        start_fail = n_t < c["min_correspondences"]
+        it1 = s["it"] + 1
+        no_trials = c["max_inner_iterations"] <= 0
+        # Phase 2: a trial, accepted if the error drops.
+        better = trial & (err < s["err"])
+        trials = s["trials"] + 1
+        acc_fail = better & (n_t < c["min_correspondences"])
+        acc_conv = better & ~acc_fail & (
+            _small_t(delta_try, c["translation_eps"], c["rotation_eps"])
+            | _stalled_t(s["prev"], err, c["relative_error_eps"]))
+        exhausted = trial & ~better & (trials >= c["max_inner_iterations"])
+        start, lin = phase == 0, phase == 1
+        return dict(
+            s,
+            T=torch.where(better, T_try, s["T"]),
+            err=torch.where(start | better, err, s["err"]),
+            n=torch.where(start | better, n_t, s["n"]),
+            it=torch.where(lin, it1, s["it"]),
+            prev=torch.where(lin, s["err"], s["prev"]),
+            H=torch.where(lin, H, s["H"]),
+            g=torch.where(lin, g, s["g"]),
+            lam=torch.where(better, torch.clamp_min(s["lam"] / lf, 1e-12),
+                            torch.where(trial, torch.clamp_max(s["lam"] * lf, 1e8), s["lam"])),
+            trials=torch.where(lin, torch.zeros_like(trials),
+                               torch.where(trial, trials, s["trials"])),
+            phase=torch.where(start | better, torch.ones_like(phase),
+                              torch.where(lin, torch.full_like(phase, 2), phase)),
+            converged=(lin & no_trials) | acc_conv | exhausted,
+            done=(start & (start_fail | (c["max_iterations"] <= 0))) | (lin & no_trials)
+            | acc_fail | acc_conv | exhausted
+            | (better & (s["it"] >= c["max_iterations"])),
+        )
+
+    return unit
+
+
+# Correspondence passes per host read of the fused driver. One runs no
+# pass after the loop is done.
+_FUSED_BLOCK = 1
+
+
+def _fused_block(unit, block: int):
+    """``block`` masked units as one function of ((state, args),) ->
+    ((state, args), the values the host reads: done, error, count,
+    iterations, converged, passes used, T), the arguments passed through
+    so the graph's later replays copy nothing into its slots."""
+
+    def run(carry):
+        s, args = carry
+        for _ in range(block):
+            active = ~s["done"]
+            new = unit(s, args)
+            s = {k: torch.where(active, new[k], v) for k, v in s.items()}
+            s["used"] = s["used"] + active.to(torch.int64)
+        head = torch.stack([s["done"].double(), s["err"].double(), s["n"].double(),
+                            s["it"].double(), s["converged"].double(), s["used"].double()])
+        return (s, args), torch.cat([head, s["T"].reshape(-1).double()])
+
+    return run
+
+
 def align(
     source: PointCloud,
     target: PointCloud,
@@ -426,7 +551,7 @@ def align(
     lambda_factor: float = 10.0,
     max_inner_iterations: int = 10,
     covariance_epsilon: float = 1e-3,
-    driver: str = "fused",
+    driver: str = "host",
     knn_method: str = "auto",
     knn_bucket_size: Optional[float] = None,
     correspondence: str = "dense",
@@ -448,10 +573,13 @@ def align(
     ``knn_method`` / ``knn_bucket_size``: the neighbour search of the
     normal / covariance preparation (``search.knn``'s methods).
 
-    ``driver``: "fused" (the default) and "host" both run the host loop with
-    one read per iteration; the reference's fused form (one device program
-    per align) answers a TPU dispatch cost and is not ported. Any other
-    value raises.
+    ``driver``: "host" (the default) is the host loop, with one read per
+    iteration or LM trial. "fused" keeps the loop's control flow on the
+    device (see the module docstring): ``_FUSED_BLOCK`` correspondence
+    passes (GN iterations, or LM linearizations and trials) per host
+    read, the blocks after the first one CUDA graph on a card, captured
+    for this call. Both give the same result bit for bit; any other value
+    raises.
     """
     if optimizer not in ("gn", "lm"):
         raise ValueError(f"unknown optimizer: {optimizer!r}")
@@ -510,18 +638,28 @@ def align(
     elif method not in ("icp", "point_to_plane", "gicp"):
         raise ValueError(f"unknown method: {method!r}")
 
-    step, err_fn, linearize, solve_retract = _gn_step_factory(
-        method, kernel, kernel_scale, max_correspondence_distance, corr, voxel_size,
-        corr_dims,
-    )
+    factory = (method, kernel, kernel_scale, max_correspondence_distance, corr, voxel_size,
+               corr_dims)
     args = (source.xyz, source.mask, t_xyz, t_mask, t_normals, s_cov, t_cov, vox)
+    if driver == "fused":
+        crit = dict(
+            max_iterations=max_iterations, min_correspondences=min_correspondences,
+            translation_eps=translation_eps, rotation_eps=rotation_eps,
+            relative_error_eps=relative_error_eps, lambda_factor=lambda_factor,
+            max_inner_iterations=max_inner_iterations,
+        )
+        return _align_fused(optimizer, factory, crit, T, init_lambda, args)
+    step, err_fn, linearize, solve_retract = _gn_step_factory(*factory)
+    passes = [0]
 
     def read(err_t, n_t, delta_t=None):
         """One host read of an iteration's error, count (and step)."""
+        global host_reads
         parts = [err_t.reshape(1).double(), n_t.reshape(1).double()]
         if delta_t is not None:
             parts.append(delta_t.double())
         h = torch.cat(parts).cpu().numpy()
+        host_reads += 1
         return float(np.float32(h[0])), int(h[1]), (h[2:] if delta_t is not None else None)
 
     converged = False
@@ -532,6 +670,7 @@ def align(
         prev_err = 3.4e38
         for it in range(1, max_iterations + 1):
             T_new, delta_t, err_t, n_t = step(T, 1e-6, *args)
+            passes[0] += 1
             err, n_corr, delta = read(err_t, n_t, delta_t)
             if n_corr < min_correspondences:
                 it -= 1  # failed result at the pre-step transform
@@ -545,6 +684,7 @@ def align(
     else:  # adaptive LM
         lam = float(np.float32(init_lambda))
         err, n_corr, _ = read(*err_fn(T, *args))
+        passes[0] += 1
         if n_corr < min_correspondences:
             it = 0
         else:
@@ -555,9 +695,11 @@ def align(
                 # Linearize ONCE at T; lambda trials re-solve and re-check
                 # the error only.
                 H, g, _, _ = linearize(T, *args)
+                passes[0] += 1
                 for _ in range(max_inner_iterations):
                     T_try, delta_t = solve_retract(H, g, T, lam)
                     err_t, n_t = err_fn(T_try, *args)
+                    passes[0] += 1
                     err_new, n_new, delta_new = read(err_t, n_t, delta_t)
                     if err_new < err:
                         lam = max(lam / lambda_factor, 1e-12)
@@ -575,10 +717,66 @@ def align(
                     converged = True
                     break
 
+    global passes_run, passes_used
+    passes_run += passes[0]
+    passes_used += passes[0]
     return RegistrationResult(
         T=T.cpu().numpy(),
         converged=converged,
         iterations=it,
         error=err,
         num_correspondences=n_corr,
+    )
+
+
+def _align_fused(optimizer, factory, crit, T, init_lambda, args) -> RegistrationResult:
+    """``align``'s fused driver: the GN or LM units of ``_gn_unit`` /
+    ``_lm_unit`` in blocks of ``_FUSED_BLOCK``, one host read a block,
+    until done. The first block runs eagerly; the later ones replay one
+    graph captured for this call (it loads no kernel and makes no library
+    handle that the first block did not)."""
+    global host_reads, passes_run, passes_used
+    max_iterations = crit["max_iterations"]
+    if optimizer == "gn" and max_iterations <= 0:
+        return RegistrationResult(T=T.cpu().numpy(), converged=False, iterations=0,
+                                  error=float("inf"), num_correspondences=0)
+    fns = _gn_step_factory(*factory)
+    unit = (_gn_unit if optimizer == "gn" else _lm_unit)(fns, crit)
+    block = _FUSED_BLOCK
+    run = _fused_block(unit, block)
+    dev = T.device
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    s = dict(T=T, err=scalar(np.inf, torch.float32), n=scalar(0, torch.int64),
+             it=scalar(0, torch.int64), prev=scalar(np.float32(3.4e38), torch.float32),
+             converged=scalar(False, torch.bool), done=scalar(False, torch.bool),
+             used=scalar(0, torch.int64))
+    units = max_iterations
+    if optimizer == "lm":
+        s.update(H=torch.zeros((6, 6), dtype=torch.float64, device=dev),
+                 g=torch.zeros(6, dtype=torch.float64, device=dev),
+                 lam=scalar(float(np.float32(init_lambda)), torch.float64),
+                 trials=scalar(0, torch.int64), phase=scalar(0, torch.int64))
+        units = 1 + max(max_iterations, 0) * (1 + max(crit["max_inner_iterations"], 0))
+    carry = (s, tuple(args))
+    for steps in range(1, -(-units // block) + 1):
+        if steps == 2:
+            run = graphs.jit(run, donate=True, warm=False)
+        carry, head = run(carry)
+        h = head.cpu().numpy()
+        host_reads += 1
+        if h[0]:
+            break
+    else:
+        raise RuntimeError("the fused driver did not finish within its bound of passes")
+    passes_run += steps * block
+    passes_used += int(h[5])
+    return RegistrationResult(
+        T=h[6:].astype(np.float32).reshape(4, 4),
+        converged=bool(h[4]),
+        iterations=int(h[3]),
+        error=float(np.float32(h[1])),
+        num_correspondences=int(h[2]),
     )

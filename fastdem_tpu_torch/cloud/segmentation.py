@@ -6,8 +6,9 @@
     reference's plane), and scored in one [M, N] distance pass, then
     refined by PCA over the inliers.
   * Euclidean clustering: min-label propagation with pointer jumping over
-    the voxel-bucket neighbour graph (``search.BucketGrid``), a host loop
-    with one read of the ``changed`` flag per sweep.
+    the voxel-bucket neighbour graph (``search.BucketGrid``), in blocks of
+    sweeps with one host read of the ``changed`` flag per block (the
+    reference runs a ``lax.while_loop``).
   * Grid ground segmentation: per-cell robust minimum as the exact
     percentile order statistic, via a sort by (cell, z) (two stable sorts)
     and each point's cell head (a ``cummax`` of head positions), then the
@@ -32,6 +33,12 @@ from fastdem_tpu_torch.numerics import div_f32, dot_fma, sqrt_f32, sum_seq, sum_
 from fastdem_tpu_torch.utils import prng
 
 _I32_MAX = 2**31 - 1
+
+# Counted by ``euclidean_cluster`` (reset them to 0 to count a span): host
+# reads of the propagation's flag, and the sweeps the propagation needed
+# (those a per-sweep loop runs: up to the first that changes nothing).
+host_reads = 0
+sweeps = 0
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +128,55 @@ def segment_plane(
 # ---------------------------------------------------------------------------
 
 
+# Propagation sweeps per host read of the ``changed`` flag.
+_SWEEPS_PER_READ = 4
+
+
+def _sweeps(count: int):
+    """``count`` propagation sweeps with no host read: ((labels, cand,
+    active),) -> ((labels, cand, active), [active, sweeps the loop needed
+    in the block]). ``active`` is False once a sweep changed nothing; the
+    sweeps after it change nothing either."""
+
+    def run(carry):
+        labels, cand, active = carry
+        n = labels.shape[0]
+        tail = torch.full((1,), n, dtype=labels.dtype, device=labels.device)
+        needed = torch.zeros((), dtype=torch.int64, device=labels.device)
+        for _ in range(count):
+            lab_ext = torch.cat([labels, tail])
+            new = torch.minimum(labels, lab_ext[cand].amin(dim=1))
+            # Pointer jumping accelerates convergence.
+            new = torch.minimum(new, lab_ext[new.clamp_max(n - 1)])
+            needed = needed + active.to(torch.int64)
+            active = active & (new != labels).any()
+            labels = new
+        return (labels, cand, active), torch.stack([active.to(torch.int64), needed])
+
+    return run
+
+
+def _propagate(labels: torch.Tensor, cand: torch.Tensor, max_sweeps: int) -> torch.Tensor:
+    """Min-label propagation to a fixpoint or ``max_sweeps`` sweeps, in
+    eager blocks of ``_SWEEPS_PER_READ`` with one host read each, the last
+    cut short at ``max_sweeps``. Not a CUDA graph: one made per call costs
+    more than it saves (PERF.md), and one kept across calls would hold its
+    copy of the [N, 27 * per_bucket] candidate table."""
+    global host_reads, sweeps
+    carry = (labels, cand, torch.ones((), dtype=torch.bool, device=labels.device))
+    done = 0
+    while done < max_sweeps:
+        count = min(_SWEEPS_PER_READ, max_sweeps - done)
+        carry, flags = _sweeps(count)(carry)
+        done += count
+        active, needed = flags.tolist()  # the block's one host read
+        host_reads += 1
+        sweeps += needed
+        if not active:
+            break
+    return carry[0]
+
+
 def euclidean_cluster(
     cloud: PointCloud,
     tolerance: float = 0.5,
@@ -133,7 +189,11 @@ def euclidean_cluster(
 
     Returns i32[N] labels (compacted, -1 for invalid / filtered points).
     Min-label propagation with pointer jumping (label = label[label]) until
-    a fixpoint or ``max_sweeps`` sweeps; the host reads one flag a sweep.
+    a fixpoint or ``max_sweeps`` sweeps. The sweeps run in blocks
+    (``_propagate``: one host read of the flag per block), the last cut so
+    the sweeps never pass ``max_sweeps``. A sweep at the fixpoint changes
+    nothing, so the labels are those of a loop that reads the flag after
+    every sweep. ``BucketGrid`` sizes its buckets on the host.
     """
     xyz, mask = cloud.xyz, cloud.mask
     dev = xyz.device
@@ -147,17 +207,7 @@ def euclidean_cluster(
     cand = torch.where(adj, cand, n)
 
     ar = torch.arange(n, device=dev)
-    labels = torch.where(mask, ar, n)
-    tail = torch.tensor([n], device=dev)
-    for _ in range(max_sweeps):
-        lab_ext = torch.cat([labels, tail])
-        new = torch.minimum(labels, lab_ext[cand].amin(dim=1))
-        # Pointer jumping accelerates convergence.
-        new = torch.minimum(new, lab_ext[new.clamp_max(n - 1)])
-        changed = bool((new != labels).any())
-        labels = new
-        if not changed:
-            break
+    labels = _propagate(torch.where(mask, ar, n), cand, max_sweeps)
 
     # Compact labels + size filtering.
     root = mask & (labels == ar)

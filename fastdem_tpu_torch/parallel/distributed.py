@@ -313,7 +313,9 @@ def scaling_report(
     With several blocks on one card (or on the CPU) both are overhead
     probes of the blocks, not scaling: the blocks share one device. Times
     come from CUDA events with every card synchronised (the host clock on
-    the CPU), after one warm-up step."""
+    the CPU), after one warm-up step. Both steps run compiled, as
+    ``build_integrate`` and ``build_sharded_integrate`` do by default
+    (``compiled`` in the result is the sharded step's ``step.compiled``)."""
     if mode not in ("strong", "weak"):
         raise ValueError(f"unknown scaling mode: {mode!r}")
     from fastdem_tpu_torch.device import resolve_device
@@ -342,9 +344,9 @@ def scaling_report(
             state, _ = step(state, xyz, mask, T, T)
         return stop(t0) / scans
 
-    # Eager, as the sharded steps still are: both sides dispatch every op
-    # from Python, so the ratio compares like with like.
-    base_step = build_integrate(geom, cfg, jit=False, device=dev)
+    # Both sides compiled (CUDA graphs on a card, the first call capturing),
+    # so the ratio compares like with like.
+    base_step = build_integrate(geom, cfg, device=dev)
     t_single = time_step(base_step, create_map_state(geom, cfg, device=dev), [dev])
 
     n_blocks = mesh.size
@@ -370,6 +372,7 @@ def scaling_report(
         "cards": len([d for d in mesh.local_devices() if d.type == "cuda"]) * mesh.world,
         "mode": mode,
         "formulation": stepN.formulation,
+        "compiled": stepN.compiled,
         "map_shape_sharded": geom_n.shape,
         "ms_single": t_single * 1e3,
         "ms_sharded": t_sharded * 1e3,

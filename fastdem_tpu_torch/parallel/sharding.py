@@ -23,12 +23,15 @@ configuration, never by the device:
     device's blocks; the rasterizer, the field lookup (K4) and the map
     update run per block.
   * ``"blocks_fullmap"`` (LOCAL mode, or no window): every block updates
-    all of itself. LOCAL's move becomes an exchange of the shifted strips
-    between blocks (a slice copy in one process, gloo send / recv staged
-    through host memory across processes); the shift is read to the host
-    once per scan for that.
+    all of itself. LOCAL's move: where every slot lies on one device of
+    one process, each block gathers its shifted cells from the others with
+    the shift on the device; across devices or processes the shift is read
+    to the host once per scan to exchange the shifted strips (slice copies,
+    gloo send / recv staged through host memory across processes).
 
-Both equal the unsharded step bit for bit on every layer.
+Both equal the unsharded step bit for bit on every layer. With ``jit``
+(the default, as the reference's ``jax.jit``) each device's part of a
+scan is one CUDA graph (``build_sharded_integrate``).
 ``sharded_postprocess`` runs the post-processing chain per block on the
 block plus a halo of neighbouring cells, exchanged the same way.
 """
@@ -47,6 +50,7 @@ from fastdem_tpu_torch.grid import gridmap
 from fastdem_tpu_torch.grid.geometry import GridGeometry
 from fastdem_tpu_torch.grid.gridmap import GridMapState
 from fastdem_tpu_torch.numerics import recip_f32
+from fastdem_tpu_torch.utils import graphs
 
 MAP_AXES = ("mx", "my")
 
@@ -73,7 +77,8 @@ def _most_square(n: int) -> Tuple[int, int]:
 @dataclasses.dataclass(frozen=True)
 class BlockMesh:
     """mx x my block slots; ``devices[i][j]`` is the slot's device on its
-    owner (None on the other ranks) and ``owners[i][j]`` the owning rank."""
+    owner (None on the other ranks) and ``owners[i][j]`` the owning rank.
+    Hashable by value: a compiled step keys its graphs on the mesh."""
 
     shape: Tuple[int, int]
     devices: Tuple[Tuple[Optional[torch.device], ...], ...]
@@ -82,6 +87,7 @@ class BlockMesh:
     world: int = 1
 
     axis_names = MAP_AXES
+    graph_constant = True  # a constant of a graph's signature (utils/graphs.py)
 
     @property
     def size(self) -> int:
@@ -356,82 +362,197 @@ def fetch_regions(
 # ---- the integrate step -----------------------------------------------------
 
 
-def _blocks_step(
+def _shift_on_device(geom: GridGeometry, layout: BlockLayout, state: ShardedState,
+                     target_xy: torch.Tensor) -> ShardedState:
+    """``gridmap.move`` over the blocks of a mesh whose slots all lie on one
+    device of this process: new[r, c] = old[r - kr, c - kc], NaN where that
+    leaves the map. The shift stays on the device: each destination block
+    gathers its rows and columns from the layer assembled from the blocks,
+    so nothing is read to the host."""
+    res = geom.resolution
+    pos = state.position
+    delta = gridmap.round_half_away((target_xy - pos) * recip_f32(res)).to(torch.int32)
+    new_position = pos + delta.to(torch.float32) * res
+    dev = pos.device
+    src_r = torch.arange(geom.rows, dtype=torch.int32, device=dev) - delta[0]
+    src_c = torch.arange(geom.cols, dtype=torch.int32, device=dev) - delta[1]
+    inside = (((src_r >= 0) & (src_r < geom.rows))[:, None]
+              & ((src_c >= 0) & (src_c < geom.cols))[None, :])
+    src_r = src_r.clamp(0, geom.rows - 1).long()
+    src_c = src_c.clamp(0, geom.cols - 1).long()
+    mx, my = layout.mesh.shape
+    blocks: Dict[Slot, Dict[str, torch.Tensor]] = {slot: {} for slot in state.blocks}
+    for name in state.layer_names:
+        whole = torch.cat([
+            torch.cat([state.blocks[(i, j)][name] for j in range(my)], dim=1)
+            for i in range(mx)
+        ])
+        for slot, out in blocks.items():
+            r0, r1, c0, c1 = layout.rect(slot)
+            got = whole.index_select(0, src_r[r0:r1]).index_select(1, src_c[c0:c1])
+            out[name] = torch.where(inside[r0:r1, c0:c1], got, np.nan)
+    return ShardedState(state.mesh, state.shape, blocks, new_position)
+
+
+def _shift_by_exchange(geom: GridGeometry, layout: BlockLayout, state: ShardedState,
+                       target_xy: torch.Tensor) -> ShardedState:
+    """The same move where the blocks lie on several devices or processes:
+    the shift is read to the host (one sync) to cut the strips each block
+    takes from its neighbours (``fetch_regions``: slice copies, gloo
+    across processes)."""
+    res = geom.resolution
+    pos = state.position
+    delta = gridmap.round_half_away(
+        (target_xy.to(pos.device) - pos) * recip_f32(res)
+    ).to(torch.int32)
+    kr, kc = (int(v) for v in delta.tolist())
+    new_position = pos + delta.to(torch.float32) * res
+    if kr == 0 and kc == 0:
+        return ShardedState(state.mesh, state.shape, state.blocks, new_position)
+    regions = {}
+    for slot in state.mesh.slots():
+        r0, r1, c0, c1 = layout.rect(slot)
+        regions[slot] = (r0 - kr, r1 - kr, c0 - kc, c1 - kc)
+    names = state.layer_names
+    moved = fetch_regions(state, names, regions)
+    blocks = {s: {k: t[n] for n, k in enumerate(names)} for s, t in moved.items()}
+    return ShardedState(state.mesh, state.shape, blocks, new_position)
+
+
+@dataclasses.dataclass
+class _Plan:
+    """One scan over a mesh's owned blocks. ``work[dev]`` is the scan's
+    work on the blocks of one device: (that device's part of the state,
+    xyz, mask, T_bs, T_wb, intensity, color_packed) -> (its part of the new
+    state, IntegrateAux). ``exchange`` is LOCAL's move where it crosses
+    devices or processes, run eagerly before the work; None where the work
+    holds the whole scan."""
+
+    formulation: str
+    by_device: Dict[torch.device, List[Slot]]
+    work: Dict[torch.device, object]
+    exchange: Optional[object]
+
+
+def _plan(
     geom: GridGeometry, cfg, mesh: BlockMesh, window_update, polar_field_impl,
     full_blocks: bool, step_kwargs: dict,
-):
-    """The per-scan step over the mesh's owned blocks; ValueError where the
+) -> _Plan:
+    """The per-scan plan over the mesh's owned blocks; ValueError where the
     windowed formulation does not apply (``full_blocks`` False)."""
     from fastdem_tpu_torch.config import MappingMode
     from fastdem_tpu_torch.mapping.pipeline import IntegrateAux, _phases_of
 
     if window_update is False and not full_blocks:
         raise ValueError("caller pinned window_update=False")
+    by_device = {
+        dev: [s for s in mesh.local_slots() if mesh.device(s) == dev]
+        for dev in mesh.local_devices()
+    }
     phases = {
         dev: _phases_of(
             geom, cfg, dev, step_kwargs, polar_field_impl=polar_field_impl,
             window_update=window_update, spmd_blocks=mesh.shape, full_blocks=full_blocks,
         )
-        for dev in mesh.local_devices()
+        for dev in by_device
     }
-    local_mode = cfg.mapping.mode == MappingMode.LOCAL
     layout = map_sharding(mesh, geom.shape)
-    by_device = {
-        dev: [s for s in mesh.local_slots() if mesh.device(s) == dev]
-        for dev in mesh.local_devices()
-    }
+    local_mode = cfg.mapping.mode == MappingMode.LOCAL
+    one_device = mesh.world == 1 and len(by_device) == 1
 
-    def move(state: ShardedState, target_xy: torch.Tensor) -> ShardedState:
-        """gridmap.move over the blocks: new[r, c] = old[r - kr, c - kc],
-        NaN where that leaves the map. The shift is read to the host (one
-        sync) to cut the strips each block takes from its neighbours."""
-        res = geom.resolution
-        pos = state.position
-        delta = gridmap.round_half_away(
-            (target_xy.to(pos.device) - pos) * recip_f32(res)
-        ).to(torch.int32)
-        kr, kc = (int(v) for v in delta.tolist())
-        new_position = pos + delta.to(torch.float32) * res
-        if kr == 0 and kc == 0:
-            return ShardedState(mesh, state.shape, state.blocks, new_position)
-        regions = {}
-        for slot in mesh.slots():
-            r0, r1, c0, c1 = layout.rect(slot)
-            regions[slot] = (r0 - kr, r1 - kr, c0 - kc, c1 - kc)
-        names = state.layer_names
-        moved = fetch_regions(state, names, regions)
-        blocks = {s: {k: t[n] for n, k in enumerate(names)} for s, t in moved.items()}
-        return ShardedState(mesh, state.shape, blocks, new_position)
-
-    def step(state: ShardedState, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
-        if local_mode:
-            state = move(state, T_wb[:2, 3])
-        blocks = {}
-        aux = None
-        for dev, slots in by_device.items():
-            ph = phases[dev]
-
-            def on(t):
-                return None if t is None else t.to(dev, non_blocking=True)
-
-            pos = state.position.to(dev)
-            x, m = on(xyz), on(mask)
-            sh = ph.shared(pos, x, m, on(T_bs), on(T_wb))
-            nonempty = torch.any(m)
-            inten, color = on(intensity), on(color_packed)
+    def work_on(ph, slots):
+        def work(state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
+            if local_mode and one_device:
+                state = _shift_on_device(geom, layout, state, T_wb[:2, 3])
+            pos = state.position
+            sh = ph.shared(pos, xyz, mask, T_bs, T_wb)
+            nonempty = torch.any(mask)
+            blocks = {}
             for slot in slots:
-                pa = ph.block(sh, pos, inten, color, slot)
+                pa = ph.block(sh, pos, intensity, color_packed, slot)
                 bstate = GridMapState(layers=state.blocks[slot], position=pos)
                 blocks[slot] = ph.update(bstate, nonempty, pa).layers
-            if aux is None:
-                aux = IntegrateAux(
-                    world_xyz=sh.xyz_world, world_mask=sh.keep, z_var=sh.z_var,
-                    obs=None, oow_points=sh.oow_points,
-                )
-        return ShardedState(mesh, state.shape, blocks, state.position), aux
+            aux = IntegrateAux(
+                world_xyz=sh.xyz_world, world_mask=sh.keep, z_var=sh.z_var,
+                obs=None, oow_points=sh.oow_points,
+            )
+            return ShardedState(state.mesh, state.shape, blocks, pos), aux
 
-    step.formulation = "blocks_fullmap" if full_blocks else "shardmap_windowed"
-    return step
+        return work
+
+    def exchange(state, target_xy):
+        return _shift_by_exchange(geom, layout, state, target_xy)
+
+    return _Plan(
+        formulation="blocks_fullmap" if full_blocks else "shardmap_windowed",
+        by_device=by_device,
+        work={dev: work_on(phases[dev], slots) for dev, slots in by_device.items()},
+        exchange=exchange if local_mode and not one_device else None,
+    )
+
+
+def _plan_of(geom, cfg, mesh, window_update, polar_field_impl, step_kwargs) -> _Plan:
+    """The windowed plan where it applies, else ``blocks_fullmap``: a choice
+    made from the configuration alone."""
+    try:
+        return _plan(geom, cfg, mesh, window_update, polar_field_impl, False, step_kwargs)
+    except ValueError:
+        return _plan(geom, cfg, mesh, False, polar_field_impl, True, step_kwargs)
+
+
+def _over_devices(plan: _Plan, fns: dict, state: ShardedState, args: tuple):
+    """``fns[dev](that device's part of state, *args on dev)`` on each device,
+    the parts merged; returns (state, the first device's other output)."""
+    blocks: Dict[Slot, Dict[str, torch.Tensor]] = {}
+    head = None
+    for dev, slots in plan.by_device.items():
+        part = ShardedState(state.mesh, state.shape, {s: state.blocks[s] for s in slots},
+                            state.position.to(dev))
+        out = fns[dev](part, *(None if t is None else t.to(dev, non_blocking=True)
+                               for t in args))
+        part, extra = out if isinstance(out, tuple) else (out, None)
+        blocks.update(part.blocks)
+        if head is None:
+            head = (part.position, extra)
+    return ShardedState(state.mesh, state.shape, blocks, head[0]), head[1]
+
+
+def _attach(fn, plan: _Plan, fns: dict, jit: bool):
+    fn.formulation = plan.formulation
+    fn.compiled = ("eager" if not jit
+                   else "after_exchange" if plan.exchange is not None else "whole")
+    fn.per_device = fns
+    return fn
+
+
+def _step_of(plan: _Plan, jit: bool, donate: bool):
+    """The per-scan step of ``plan``: the exchange, if any, then each
+    device's work (one graph per device and signature with ``jit``)."""
+    fns = {dev: graphs.jit(w, donate=donate) if jit else w for dev, w in plan.work.items()}
+
+    def step(state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
+        if plan.exchange is not None:
+            state = plan.exchange(state, T_wb[:2, 3])
+        return _over_devices(plan, fns, state, (xyz, mask, T_bs, T_wb, intensity, color_packed))
+
+    return _attach(step, plan, fns, jit)
+
+
+def _scans(step):
+    """K stacked scans through ``step`` (which returns (state, aux)), scan
+    after scan with no host read in between."""
+
+    def run(state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
+        static_tbs = T_bs.dim() == 2
+        for k in range(xyz.shape[0]):
+            state, _ = step(
+                state, xyz[k], mask[k], T_bs if static_tbs else T_bs[k], T_wb[k],
+                None if intensity is None else intensity[k],
+                None if color_packed is None else color_packed[k],
+            )
+        return state
+
+    return run
 
 
 def build_sharded_integrate(
@@ -440,6 +561,9 @@ def build_sharded_integrate(
     mesh: BlockMesh,
     window_update: Optional[bool] = None,
     polar_field_impl: Optional[str] = None,
+    *,
+    jit: bool = True,
+    donate: bool = True,
     **step_kwargs,
 ):
     """The integrate step over a block mesh:
@@ -452,24 +576,48 @@ def build_sharded_integrate(
     ``"shardmap_windowed"`` where GLOBAL mode and a finite range filter
     let the window engage, else ``"blocks_fullmap"`` (see the module
     docstring): a choice made from the configuration alone. Neither runs a
-    collective in a GLOBAL step. Channels are taken when given; the step
-    never updates its input in place. ``step_kwargs`` are
-    ``build_integrate``'s ray, voxel-count and window-margin options.
+    collective in a GLOBAL step. Channels are taken when given.
+    ``step_kwargs`` are ``build_integrate``'s ray, voxel-count and
+    window-margin options.
+
+    ``jit`` and ``donate`` are the reference's. With ``jit`` each device's
+    part of a scan on CUDA tensors (K1 once, then K4 and the update per
+    block) is one CUDA graph per signature (``utils/graphs.py``: the mesh,
+    the channels and the scan capacity), replayed once a scan; a graph
+    never spans devices. ``step.compiled`` says how much of the scan the
+    graphs hold:
+
+      * ``"whole"``: the whole scan. That is every windowed step, every
+        GLOBAL fallback, and LOCAL's fallback in one process with every
+        slot on one device, whose move is then a gather with the shift on
+        the device;
+      * ``"after_exchange"``: LOCAL's fallback over several devices or
+        processes. Its move reads the shift to the host and exchanges
+        strips between blocks (gloo across processes), eagerly; one graph
+        per device holds the rest of the scan;
+      * ``"eager"``: ``jit=False``, every op dispatched from Python (the
+        oracle the graphs are held to).
+
+    With ``donate`` the state passed in is consumed and the returned
+    blocks and position are the graphs' own slots, updated in place;
+    without it the step never updates its input. A capture that fails
+    raises, naming the signature. On the CPU ``jit`` runs the step as it
+    is. ``step.per_device`` maps each device to its graph step (or to the
+    plain function with ``jit=False``).
 
     Returns (step, shard_fn) with shard_fn(state) = shard_state(state, mesh).
     """
-    try:
-        step = _blocks_step(geom, cfg, mesh, window_update, polar_field_impl, False,
-                            step_kwargs)
-    except ValueError:
-        step = _blocks_step(geom, cfg, mesh, False, polar_field_impl, True, step_kwargs)
-    return step, lambda s: shard_state(s, mesh)
+    plan = _plan_of(geom, cfg, mesh, window_update, polar_field_impl, step_kwargs)
+    return _step_of(plan, jit, donate), lambda s: shard_state(s, mesh)
 
 
 def build_sharded_integrate_sequence(
     geom: GridGeometry,
     cfg,
     mesh: BlockMesh,
+    *,
+    jit: bool = True,
+    donate: bool = True,
     **seq_kwargs,
 ):
     """Batched replay over a block-sharded map: K stacked scans
@@ -477,24 +625,34 @@ def build_sharded_integrate_sequence(
       seq(sharded_state, xyz[K, N, 3], mask[K, N], T_bs, T_wb[K, 4, 4],
           intensity=None, color_packed=None) -> sharded_state
 
-    through ``build_sharded_integrate``'s step (the same formulation), scan
-    after scan with no host read in between, so the map equals the step
-    loop's bit for bit. ``T_bs`` is one 4x4 or one per scan.
-    Returns (seq, shard_fn)."""
-    step, shard = build_sharded_integrate(geom, cfg, mesh, **seq_kwargs)
+    through ``build_sharded_integrate``'s step (the same formulation, the
+    same keyword arguments), scan after scan with no host read in between,
+    so the map equals the step loop's bit for bit. ``T_bs`` is one 4x4 or
+    one per scan.
+
+    ``jit`` / ``donate`` as in ``build_sharded_integrate``. Where the step
+    is ``"whole"``, each device's K scans are one CUDA graph per (mesh, K,
+    N, channels): the counterpart of the reference's jitted ``lax.scan``,
+    with K1 launched K times and K4 K times per block in a replay. Where it
+    is ``"after_exchange"``, the K scans run the compiled step one after
+    another (each move exchanges strips first). Returns (seq, shard_fn)."""
+    kw = dict(seq_kwargs)
+    window_update = kw.pop("window_update", None)
+    polar_field_impl = kw.pop("polar_field_impl", None)
+    plan = _plan_of(geom, cfg, mesh, window_update, polar_field_impl, kw)
+    if plan.exchange is not None:
+        step = _step_of(plan, jit, donate)
+        return _attach(_scans(step), plan, step.per_device, jit), lambda s: shard_state(s, mesh)
+    fns = {
+        dev: graphs.jit(_scans(w), donate=donate) if jit else _scans(w)
+        for dev, w in plan.work.items()
+    }
 
     def seq(state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
-        static_tbs = T_bs.dim() == 2
-        for k in range(xyz.shape[0]):
-            state, _ = step(
-                state, xyz[k], mask[k], T_bs if static_tbs else T_bs[k], T_wb[k],
-                None if intensity is None else intensity[k],
-                None if color_packed is None else color_packed[k],
-            )
-        return state
+        return _over_devices(plan, fns, state, (xyz, mask, T_bs, T_wb, intensity,
+                                                color_packed))[0]
 
-    seq.formulation = step.formulation
-    return seq, shard
+    return _attach(seq, plan, fns, jit), lambda s: shard_state(s, mesh)
 
 
 # ---- post-processing ----------------------------------------------------------

@@ -26,26 +26,13 @@ from fastdem_tpu_torch.ops import cuda_build
 from fastdem_tpu_torch.ops import polar_field as k1
 from fastdem_tpu_torch.ops import resample as k4
 from fastdem_tpu_torch.postprocess import raycasting as raycast
+from fastdem_tpu_torch.utils import profiling
 from fastdem_tpu_torch.utils.profiling import platform_info
 
 
 def device_ms(fn, reps: int) -> float:
     """Device time per call of the kernels ``fn`` launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "device_time", None)
-            total += e.cuda_time if t is None else t
-    if total <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return total / reps / 1000.0
+    return profiling.device_profile(fn, reps, attempts=3)[0]
 
 
 def load_other(csrc: Path, build_dir: Path):

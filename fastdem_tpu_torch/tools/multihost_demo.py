@@ -16,6 +16,8 @@ x and -0.3 m along y per synthetic scan (the blocks exchange the strips of
 each move); ``--pp-out`` also writes the post-processing chain
 run over the sharded map (halos exchanged between the processes);
 ``--ckpt`` writes a sharded checkpoint (``io/sharded_ckpt.py``).
+The step runs compiled, as CUDA graphs on a card (``jit=True``: the whole
+scan in GLOBAL mode, the scan after the strip exchange in LOCAL mode).
 
 Two processes on one machine (gloo; a free port for the coordinator):
   python -m fastdem_tpu_torch.tools.multihost_demo --pid 0 --nproc 2 \\
@@ -127,18 +129,16 @@ def main(argv=None):
     twb_t = torch.tensor(T_wb, device=dev)
 
     if args.batched:
-        seq, shard = sh.build_sharded_integrate_sequence(geom, cfg, mesh)
-        state = seq(shard(create_map_state(geom, cfg, device=dev)), xyz_t, mask_t, tbs_t, twb_t)
-        formulation = seq.formulation
+        run, shard = sh.build_sharded_integrate_sequence(geom, cfg, mesh)
+        state = run(shard(create_map_state(geom, cfg, device=dev)), xyz_t, mask_t, tbs_t, twb_t)
     else:
-        step, shard = sh.build_sharded_integrate(geom, cfg, mesh)
+        run, shard = sh.build_sharded_integrate(geom, cfg, mesh)
         state = shard(create_map_state(geom, cfg, device=dev))
         for k in range(K):
-            state, _ = step(state, xyz_t[k], mask_t[k], tbs_t, twb_t[k])
-        formulation = step.formulation
+            state, _ = run(state, xyz_t[k], mask_t[k], tbs_t, twb_t[k])
     finite = sum(int(torch.isfinite(b["elevation"]).sum()) for b in state.blocks.values())
-    print(f"[mh] proc {mesh.rank}: {formulation}, {K} scans, finite cells (own blocks) "
-          f"= {finite}", flush=True)
+    print(f"[mh] proc {mesh.rank}: {run.formulation} ({run.compiled}), {K} scans, finite "
+          f"cells (own blocks) = {finite}", flush=True)
 
     ok = True
     if args.out:

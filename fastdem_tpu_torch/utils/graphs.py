@@ -4,7 +4,9 @@ captured into a CUDA graph once per input signature, then replayed.
 ``jit(fn, donate=True)`` returns a callable with ``fn``'s signature. Its
 arguments are tensors and pytrees of them: dataclasses (``GridMapState``,
 ``IntegrateAux``), dicts, tuples, lists; ``None`` and other Python values
-are constants of the signature.
+are constants of the signature, and so is an object whose class sets
+``graph_constant = True`` (a hashable value such as
+``parallel.sharding.BlockMesh``: it is kept as it is, never walked).
 
 On CUDA tensors:
 
@@ -59,7 +61,17 @@ later capture may reuse what an earlier one freed. The pool holds each
 graph's outputs and the largest graph's temporaries; the slots are
 outside it. The number of graphs is the number of signatures the caller
 passes: the facade (``mapping.pipeline.FastDEM``) bounds it by padding
-each scan to a power of two.
+each scan to a power of two. A step made for one call (registration's
+fused driver) takes its graphs and pool with it when it is dropped. Each
+capture first returns the blocks the caching allocator keeps to the
+device (``empty_cache``): those it keeps for eager work and those of
+dropped pools. The new pool cannot use them, and a capture cannot free
+them.
+
+``jit(fn, warm=False)`` skips the warm-up, for a caller that has just run
+``fn`` eagerly on the same device (the kernels are loaded, the library
+handles made): its first call captures and replays, with no run whose
+result is dropped.
 """
 
 from __future__ import annotations
@@ -106,6 +118,9 @@ def _flatten(tree) -> Tuple[Any, List[torch.Tensor]]:
         if isinstance(x, torch.Tensor):
             leaves.append(x)
             return _LEAF
+        if getattr(x, "graph_constant", False):
+            hash(x)
+            return ("const", x)
         if isinstance(x, tuple):
             return ("tuple", tuple(walk(v) for v in x))
         if isinstance(x, list):
@@ -187,6 +202,11 @@ class CudaGraphs:
         with torch.cuda.stream(side):
             warm()
             side.synchronize()
+            # The capture allocates from its own pool, which cannot take the
+            # blocks the allocator caches for eager work (the warm-up's among
+            # them) or holds for dropped pools, nor free them while it
+            # captures: return them first.
+            torch.cuda.empty_cache()
             reserved0 = torch.cuda.memory_reserved(device)
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
@@ -211,7 +231,7 @@ class _Graph:
     right after the capture, copying the inputs into the slots again, so
     the call is one step whatever the capture primitive ran meanwhile."""
 
-    def __init__(self, fn, spec, leaves, spec0, n_donated, donate, label, pool):
+    def __init__(self, fn, spec, leaves, spec0, n_donated, donate, warm, label, pool):
         dev = leaves[0].device
         self.slots = [torch.empty_like(t, memory_format=torch.contiguous_format)
                       for t in leaves]
@@ -228,13 +248,14 @@ class _Graph:
 
         warmed = []
 
-        def warm():
-            fn(*args, **kwargs)  # its result is dropped
+        def warm_up():
+            if warm:
+                fn(*args, **kwargs)  # its result is dropped
             warmed.append(True)
 
         try:
             with _counters_kept():
-                self.graph, self.outs, pool_bytes = BACKEND.capture(dev, warm, body, pool)
+                self.graph, self.outs, pool_bytes = BACKEND.capture(dev, warm_up, body, pool)
         except BaseException as err:
             if not warmed:
                 raise  # ``fn`` itself failed, as it would eagerly
@@ -303,10 +324,11 @@ def _describe(leaves) -> str:
 class CompiledStep:
     """``fn`` captured per signature (see the module docstring)."""
 
-    def __init__(self, fn, donate: bool = True):
+    def __init__(self, fn, donate: bool = True, warm: bool = True):
         functools.update_wrapper(self, fn)
         self.fn = fn
         self.donate = donate
+        self.warm = warm
         self.name = getattr(fn, "__qualname__", repr(fn))
         self.graphs: Dict[Any, _Graph] = {}
         self._pool = None  # the graphs' shared memory pool, made at the first capture
@@ -331,7 +353,7 @@ class CompiledStep:
             try:
                 # The first argument's leaves lead ``leaves``.
                 graph = _Graph(self.fn, spec, leaves, spec0, len(leaves0), self.donate,
-                               self.name, self._pool)
+                               self.warm, self.name, self._pool)
             except BaseException:
                 self._pool = None  # later captures start a pool of their own
                 raise
@@ -352,7 +374,7 @@ class CompiledStep:
             self._pool = None
 
 
-def jit(fn, donate: bool = True) -> CompiledStep:
+def jit(fn, donate: bool = True, warm: bool = True) -> CompiledStep:
     """``fn`` captured into a CUDA graph per input signature, with the first
     argument donated (see the module docstring)."""
-    return CompiledStep(fn, donate=donate)
+    return CompiledStep(fn, donate=donate, warm=warm)

@@ -5,7 +5,8 @@
 stddev, median and a 95% CI after IQR outlier removal); ``benchmark``
 times a callable with the card synchronised around each rep;
 ``platform_info`` names the device and its power limit; ``trace`` records a
-``torch.profiler`` trace of a block.
+``torch.profiler`` trace of a block; ``device_profile`` sums the device
+events of a callable's calls.
 """
 
 from __future__ import annotations
@@ -91,6 +92,59 @@ def benchmark(
         sync(fn())
         samples.append((time.perf_counter() - t0) * 1e3)
     return compute_stats(samples)
+
+
+# Idle seconds at each end of a ``device_profile`` window.
+PROFILE_PAD_S = 0.02
+
+
+def profile_window(fn: Callable[[], object], reps: int, pad_s: Optional[float] = None):
+    """``torch.profiler`` (CPU and CUDA) over ``reps`` calls of ``fn``, the
+    card synchronised before the window and after the calls, the window
+    idle for ``pad_s`` seconds (default ``PROFILE_PAD_S``) before the first
+    call and after the last.
+    Returns ``(profiler, device events by name)``: each CUDA event's count
+    and total device time in microseconds.
+
+    Kineto drops a device event that it places outside the window. On the
+    H100 unpadded windows of 50 short launches lost all their events about
+    once in 11 s (13 of 1,807 windows, one more lost some); padded by 20
+    ms, none of 1,807 did (``tools/profiler_windows.py``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pad_s = PROFILE_PAD_S if pad_s is None else pad_s
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        for _ in range(reps):
+            fn()
+        _sync()
+        time.sleep(pad_s)
+    events = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "device_time", None)
+            n, us = events.get(e.name, (0, 0.0))
+            events[e.name] = (n + 1, us + (e.cuda_time if t is None else t))
+    return prof, events
+
+
+def device_profile(fn: Callable[[], object], reps: int, attempts: int = 1):
+    """(device ms, device events, {name: (events, device ms)}) per call of
+    ``fn``: the count and the summed time of the CUDA events (kernels,
+    copies, fills) of ``reps`` calls in one ``profile_window``, / reps, and
+    the profiler. A window that records no device time is measured again,
+    up to ``attempts`` windows in all: give ``attempts`` > 1 only for an
+    ``fn`` that may run again. Raises when no window recorded any."""
+    for _ in range(attempts):
+        prof, events = profile_window(fn, reps)
+        total = sum(us for _, us in events.values())
+        if total > 0.0:
+            count = sum(n for n, _ in events.values())
+            by_name = {k: (n / reps, us / reps / 1000.0) for k, (n, us) in events.items()}
+            return total / reps / 1000.0, count / reps, by_name, prof
+    raise RuntimeError(f"the profiler recorded no device time in {attempts} window(s)")
 
 
 def platform_info() -> dict:

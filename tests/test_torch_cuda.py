@@ -998,3 +998,148 @@ def test_graph_block_step_equals_eager_on_card(cuda):
             assert len(step.graphs) == 4
     for slot in mesh.slots():
         assert_bitwise_on_card(out[False][slot], out[True][slot])
+
+
+def sharded_graph_run(dev, cfg, geom, jit, xyz, poses, T_bs, sequence=False):
+    """The scans through the 2x2 sharded step (or as one sequence call):
+    (gathered state, K1 launches, K4 launches, the step)."""
+    from fastdem_tpu_torch.parallel import sharding as sh
+
+    mesh = sh.make_mesh(4, shape=(2, 2), devices=[dev])
+    n = xyz[0].shape[0]
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    mask[-300:] = False
+    build = sh.build_sharded_integrate_sequence if sequence else sh.build_sharded_integrate
+    step, shard = build(geom, cfg, mesh, jit=jit)
+    s = shard(fd.create_map_state(geom, cfg, device=dev))
+    torch.cuda.synchronize()
+    before, before4 = k1.launches, k4.launches
+    if sequence:
+        K = len(xyz)
+        s = step(s, torch.tensor(np.stack(xyz), device=dev), mask.expand(K, -1), T_bs,
+                 torch.tensor(np.stack(poses), device=dev))
+    else:
+        for k in range(len(xyz)):
+            s, _ = step(s, torch.tensor(xyz[k], device=dev), mask, T_bs,
+                        torch.tensor(poses[k], device=dev))
+    torch.cuda.synchronize()
+    return sh.gather_state(s), k1.launches - before, k4.launches - before4, step
+
+
+@pytest.mark.parametrize("mode", ["GLOBAL", "LOCAL"])
+@pytest.mark.parametrize("sequence", [False, True])
+def test_graph_sharded_step_equals_eager_on_card(cuda, mode, sequence):
+    """The 2x2 sharded step on one card (the windowed GLOBAL map, and the
+    LOCAL fallback whose move is a gather on the device) and its sequence,
+    each one graph per scan (per call for the sequence), equal their eager
+    form and the unsharded step bit for bit; K1 counts once per scan and
+    K4 once per block per scan through the replays."""
+    xyz, poses = replay_scans(6, seed=21)
+    geom = fd.GridGeometry.from_length(40.0 if mode == "GLOBAL" else 15.0, 40.0 if
+                                       mode == "GLOBAL" else 15.0, 0.1)
+    cfg = fd.Config()
+    cfg.mapping.mode = getattr(fd.MappingMode, mode)
+    cfg.raycasting.enabled = True
+    if mode == "GLOBAL":
+        cfg.point_filter.range_max = 6.0
+    T_bs = torch.eye(4, device=cuda)
+    T_bs[2, 3] = 1.0
+    ref, e1, e4, _ = sharded_graph_run(cuda, cfg, geom, False, xyz, poses, T_bs, sequence)
+    got, g1, g4, step = sharded_graph_run(cuda, cfg, geom, True, xyz, poses, T_bs, sequence)
+    assert step.compiled == "whole"
+    assert_bitwise_on_card(ref, got)
+    assert (e1, e4) == (g1, g4) == (6, 24)
+    one = fd.build_integrate(geom, cfg, device=cuda)
+    s1 = fd.create_map_state(geom, cfg, device=cuda)
+    mask = torch.ones(30000, dtype=torch.bool, device=cuda)
+    mask[-300:] = False
+    for k in range(6):
+        s1, _ = one(s1, torch.tensor(xyz[k], device=cuda), mask, T_bs,
+                    torch.tensor(poses[k], device=cuda))
+    assert_bitwise_on_card(s1, got)
+    if mode == "LOCAL":
+        assert float(got.position[0]) > 0.9  # the moves crossed block edges
+    (graph_step,) = step.per_device.values()
+    assert [st.replays for st in graph_step.stats()] == [1 if sequence else 6]
+
+
+@pytest.mark.parametrize("method,optimizer", [("icp", "gn"), ("icp", "lm"), ("gicp", "lm"),
+                                              ("vgicp", "lm")])
+def test_fused_align_equals_host_on_card(cuda, monkeypatch, method, optimizer):
+    """The fused driver (blocks of 1, 4 and 64 passes, each call capturing
+    its own graph after an eager first block) gives the host loop's result
+    bit for bit on the card, with one host read per block and fewer masked
+    passes than a block."""
+    from fastdem_tpu_torch.cloud import registration as reg
+    from fastdem_tpu_torch.tools.common import registration_pair
+
+    src, tgt, _ = registration_pair(3000, seed=2)
+    s_c, t_c = (fd.cloud.from_numpy(a, device=cuda) for a in (src, tgt))
+    kw = dict(method=method, optimizer=optimizer, voxel_size=1.0)
+    reg.host_reads = reg.passes_run = reg.passes_used = 0
+    host = reg.align(s_c, t_c, driver="host", **kw)
+    passes = reg.passes_used
+    for block in (1, 4, 64):
+        monkeypatch.setattr(reg, "_FUSED_BLOCK", block)
+        for _ in range(2):
+            reg.host_reads = reg.passes_run = reg.passes_used = 0
+            got = reg.align(s_c, t_c, driver="fused", **kw)
+            assert np.array_equal(got.T.view(np.int32), host.T.view(np.int32)), block
+            assert (got.error, got.iterations, got.converged, got.num_correspondences) == (
+                host.error, host.iterations, host.converged, host.num_correspondences)
+            assert reg.passes_used == passes and reg.host_reads == -(-passes // block)
+            assert reg.passes_run - passes < block
+
+
+def per_sweep_propagate(labels, cand, max_sweeps):
+    """The propagation as a plain loop that reads the ``changed`` flag after
+    every sweep (the reference of ``tests/test_torch_segmentation.py``)."""
+    from fastdem_tpu_torch.cloud import segmentation as segm
+
+    n = labels.shape[0]
+    tail = torch.tensor([n], device=labels.device)
+    for _ in range(max_sweeps):
+        lab_ext = torch.cat([labels, tail])
+        new = torch.minimum(labels, lab_ext[cand].amin(dim=1))
+        new = torch.minimum(new, lab_ext[new.clamp_max(n - 1)])
+        changed = bool((new != labels).any())
+        segm.sweeps += 1
+        labels = new
+        if not changed:
+            break
+    return labels
+
+
+def test_cluster_blocks_equal_per_sweep_on_card(cuda, monkeypatch):
+    """Blocks of sweeps give the per-sweep loop's labels on the card, one
+    host read per block, and the CPU's labels."""
+    from fastdem_tpu_torch.cloud import segmentation as segm
+    from fastdem_tpu_torch.tools.common import make_cloud_np
+
+    xyz = make_cloud_np(20000, np.random.default_rng(4), spread=20.0)
+    c_d = fd.cloud.from_numpy(xyz, device=cuda)
+    segm.host_reads = segm.sweeps = 0
+    with monkeypatch.context() as m:
+        m.setattr(segm, "_propagate", per_sweep_propagate)
+        ref = segm.euclidean_cluster(c_d, tolerance=0.5)
+    need = segm.sweeps
+    for per_read in (4, 16):
+        monkeypatch.setattr(segm, "_SWEEPS_PER_READ", per_read)
+        segm.host_reads = segm.sweeps = 0
+        got = segm.euclidean_cluster(c_d, tolerance=0.5)
+        assert torch.equal(got, ref) and segm.sweeps == need
+        assert segm.host_reads == -(-need // per_read)
+    assert torch.equal(ref.cpu(), segm.euclidean_cluster(fd.cloud.from_numpy(xyz, device="cpu"),
+                                                         tolerance=0.5))
+
+
+def test_device_profile_sees_every_launch_on_card(cuda):
+    """Padded windows of short launches record every launch: 20 windows of
+    50 adds each give 50 device events per window."""
+    from fastdem_tpu_torch.utils import profiling
+
+    x = torch.zeros(22500, device=cuda)
+    for _ in range(20):
+        ms, events, by_name, _ = profiling.device_profile(lambda: x.add_(1.0), 50)
+        assert events == 1.0 and ms > 0.0 and len(by_name) == 1
+    assert float(x[0]) == 20 * 50

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import fastdem_tpu as fj
@@ -91,10 +92,26 @@ def config(mode="LOCAL", est="KALMAN", raycast=True, method="polar", range_max=N
     return cfg
 
 
+class HostValueGuard(TorchFunctionMode):
+    """Raises on a tensor method that hands a value to Python: on a card it
+    copies to the host and waits, which a capture refuses. On the CPU some
+    of them read the memory without a dispatched op, so ``CaptureGuard``
+    cannot see them."""
+
+    METHODS = {torch.Tensor.tolist, torch.Tensor.item, torch.Tensor.numpy,
+               torch.Tensor.__bool__, torch.Tensor.__int__, torch.Tensor.__float__,
+               torch.Tensor.__index__}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self.METHODS:
+            raise AssertionError(f"{func.__name__} inside the step: a capture would refuse it")
+        return func(*args, **(kwargs or {}))
+
+
 def guarded(fn, *args):
-    """``fn`` once as the warm-up, then once under the guard."""
+    """``fn`` once as the warm-up, then once under both guards."""
     fn(*args)
-    with CaptureGuard():
+    with CaptureGuard(), HostValueGuard():
         return fn(*args)
 
 
@@ -327,6 +344,26 @@ def test_cache_keys(recorded, rng):
     for tbs in (T, T.expand(2, 4, 4).clone(), T):
         state = seq(state, xyz, mask, tbs, poses)
     assert len(seq.graphs) == 2
+
+
+@pytest.mark.parametrize("warm", [True, False])
+def test_warm_up_runs_unless_the_caller_ran_the_step(recorded, warm):
+    """``jit(fn, warm=False)`` captures without the warm-up run: the first
+    call runs ``fn`` for the capture and the replay only, and gives the
+    same step as with the warm-up."""
+    calls = []
+
+    def fn(x):
+        calls.append(True)
+        return x * 2.0 + 1.0, x.sum()
+
+    step = graphs.jit(fn, warm=warm)
+    x = torch.arange(6, dtype=torch.float32)
+    x, total = step(x)
+    assert len(calls) == (3 if warm else 2)
+    x, total = step(x)
+    assert len(calls) == (4 if warm else 3)
+    assert x.tolist() == [3.0, 7.0, 11.0, 15.0, 19.0, 23.0] and float(total) == 36.0
 
 
 def test_facade_keeps_held_state_and_rebuild_drops_graphs(recorded, rng):

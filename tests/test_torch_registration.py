@@ -17,6 +17,9 @@ Tolerances:
     correspondence count exactly.
 """
 
+import gc
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -307,3 +310,136 @@ def test_align_bucket_knn_prep():
                     knn_method="bucket", knn_bucket_size=0.5)
     assert res.converged
     assert np.linalg.norm(res.T[:3, 3] - T[:3, 3]) < 0.03
+
+
+# --- the fused driver: the loop's control flow on the device ----------------
+
+
+def fused_and_host(kw, src, tgt, block):
+    """(host result, fused result in blocks of ``block`` passes, host reads /
+    passes, fused reads / passes run / passes used)."""
+    reg.host_reads = reg.passes_run = reg.passes_used = 0
+    r_host = reg.align(cpu(src), cpu(tgt), driver="host", **kw)
+    host = (reg.host_reads, reg.passes_run)
+    reg.host_reads = reg.passes_run = reg.passes_used = 0
+    kept, reg._FUSED_BLOCK = reg._FUSED_BLOCK, block
+    try:
+        r_fused = reg.align(cpu(src), cpu(tgt), driver="fused", **kw)
+    finally:
+        reg._FUSED_BLOCK = kept
+    return r_host, r_fused, host, (reg.host_reads, reg.passes_run, reg.passes_used)
+
+
+def assert_same_result(r_host, r_fused):
+    np.testing.assert_array_equal(r_fused.T.view(np.int32), r_host.T.view(np.int32))
+    assert np.float32(r_fused.error).view(np.int32) == np.float32(r_host.error).view(np.int32)
+    assert (r_fused.converged, r_fused.iterations, r_fused.num_correspondences) == (
+        r_host.converged, r_host.iterations, r_host.num_correspondences)
+
+
+@pytest.mark.parametrize("block", [1, 3, 8])
+@pytest.mark.parametrize("kw", ALIGN_CASES,
+                         ids=lambda kw: "-".join(str(v) for v in kw.values()))
+def test_fused_equals_host_bitwise(kw, block):
+    """Every method x optimizer of ``test_align_matches_jax``: T, the error,
+    the iterations, converged and the correspondence count bit for bit; the
+    fused driver reads the host once per block of ``block`` passes, needs
+    the host loop's passes and runs fewer than ``block`` more."""
+    rng = np.random.default_rng(42)
+    src, tgt, _ = make_pair(rng, 300)
+    if "kernel" in kw:
+        src = np.vstack([src, rng.uniform(-3, 3, (30, 3)).astype(np.float32)])
+    kw = dict(kw, max_iterations=30, voxel_size=0.8 if kw["method"] == "vgicp" else 0.4)
+    r_host, r_fused, (h_reads, h_passes), (reads, run, used) = fused_and_host(
+        kw, src, tgt, block)
+    assert_same_result(r_host, r_fused)
+    assert used == h_passes and h_reads <= h_passes
+    assert reads == -(-used // block) and run == reads * block
+    assert 0 <= run - used < block
+
+
+@pytest.mark.parametrize("optimizer", ["gn", "lm"])
+@pytest.mark.parametrize("edge", ["no iterations", "one iteration", "too few correspondences",
+                                  "no lambda trials", "iteration cap"])
+def test_fused_equals_host_at_the_edges(optimizer, edge):
+    """The loop's exits: no iteration, the cap, a failed first pass (too
+    few correspondences), LM without trials."""
+    src, tgt, _ = make_pair(np.random.default_rng(5), 200)
+    kw = dict(method="icp", optimizer=optimizer, max_iterations=20)
+    kw.update({
+        "no iterations": dict(max_iterations=0),
+        "one iteration": dict(max_iterations=1),
+        "too few correspondences": dict(min_correspondences=10**6),
+        "no lambda trials": dict(max_inner_iterations=0),
+        "iteration cap": dict(max_iterations=3, translation_eps=0.0, rotation_eps=0.0,
+                              relative_error_eps=0.0),
+    }[edge])
+    r_host, r_fused, (_, h_passes), (reads, run, used) = fused_and_host(kw, src, tgt, 4)
+    assert_same_result(r_host, r_fused)
+    assert used == h_passes and run - used < 4
+    if edge == "iteration cap":
+        assert r_host.iterations == 3 and not r_host.converged
+
+
+def test_fused_block_of_the_whole_bound_reads_once():
+    """A block as long as the loop's bound of passes: one host read per
+    align, as the reference's one ``lax.while_loop`` program."""
+    src, tgt, _ = corrugated(2000, 7)
+    kw = dict(method="icp", optimizer="gn", max_iterations=25)
+    r_host, r_fused, (h_reads, _), (reads, run, used) = fused_and_host(kw, src, tgt, 25)
+    assert_same_result(r_host, r_fused)
+    assert reads == 1 and run == 25 and h_reads == r_host.iterations > 1
+
+
+@pytest.mark.parametrize("optimizer", ["gn", "lm"])
+def test_fused_block_is_capture_safe(monkeypatch, optimizer):
+    """Each block of the fused driver (GICP, and VGICP's dense and sorted
+    voxel lookups) runs under the capture guards of ``test_torch_graphs.py``
+    after a warm-up call on the same values."""
+    from test_torch_graphs import guarded
+
+    blocks = []
+
+    def jit(fn, donate=True, warm=True):
+        def step(carry):
+            blocks.append(True)
+            return guarded(fn, carry)
+
+        return step
+
+    monkeypatch.setattr(reg.graphs, "jit", jit)
+    monkeypatch.setattr(reg, "_FUSED_BLOCK", 2)
+    src, tgt, _ = make_pair(np.random.default_rng(1), 200)
+    for method, corr in (("gicp", "dense"), ("vgicp", "dense"), ("vgicp", "sorted")):
+        r_host = reg.align(cpu(src), cpu(tgt), method=method, optimizer=optimizer,
+                           max_iterations=6, voxel_size=0.8, correspondence=corr,
+                           driver="host")
+        r_fused = reg.align(cpu(src), cpu(tgt), method=method, optimizer=optimizer,
+                            max_iterations=6, voxel_size=0.8, correspondence=corr,
+                            driver="fused")
+        assert_same_result(r_host, r_fused)
+    assert len(blocks) >= 3
+
+
+def test_fused_graph_lives_for_one_call(monkeypatch):
+    """The fused driver runs its first block eagerly and the later ones
+    through one step made for the call (``graphs.jit(..., warm=False)``:
+    the first block loaded the kernels), which nothing keeps once ``align``
+    returns. The default driver is the host loop, which makes none."""
+    made = []
+    real_jit = reg.graphs.jit
+
+    def jit(fn, donate=True, warm=True):
+        step = real_jit(fn, donate=donate, warm=warm)
+        made.append((weakref.ref(step), donate, warm))
+        return step
+
+    monkeypatch.setattr(reg.graphs, "jit", jit)
+    src, tgt, _ = corrugated(2000, 7)
+    kw = dict(method="icp", optimizer="gn", max_iterations=25)
+    r_default = reg.align(cpu(src), cpu(tgt), **kw)
+    assert made == []
+    for _ in range(2):
+        assert_same_result(r_default, reg.align(cpu(src), cpu(tgt), driver="fused", **kw))
+    gc.collect()
+    assert [(r() is None, donate, warm) for r, donate, warm in made] == [(True, True, False)] * 2

@@ -85,6 +85,107 @@ def test_euclidean_cluster_matches_jax(min_size, max_size):
     np.testing.assert_array_equal(lt.numpy(), lj)
 
 
+def cluster_scene():
+    rng = np.random.default_rng(2)
+    blobs = [rng.normal(0, 0.15, (120, 3)) + c for c in
+             ([0, 0, 0], [3, 0, 0], [0, 3, 0], [3, 3, 1])]
+    chain = np.column_stack([np.arange(30) * 0.3 + 6, np.zeros(30), np.zeros(30)])
+    return np.vstack(blobs + [chain, rng.uniform(10, 20, (10, 3))]).astype(np.float32)
+
+
+def per_sweep_propagate(labels, cand, max_sweeps):
+    """The propagation as a plain loop that reads the ``changed`` flag after
+    every sweep: the reference the sweep blocks are held to."""
+    n = labels.shape[0]
+    tail = torch.tensor([n])
+    for _ in range(max_sweeps):
+        lab_ext = torch.cat([labels, tail])
+        new = torch.minimum(labels, lab_ext[cand].amin(dim=1))
+        new = torch.minimum(new, lab_ext[new.clamp_max(n - 1)])
+        changed = bool((new != labels).any())
+        segm.host_reads += 1
+        segm.sweeps += 1
+        labels = new
+        if not changed:
+            break
+    return labels
+
+
+def counted_cluster(cloud, per_read=None, **kw):
+    """(labels, host reads, sweeps) of one ``euclidean_cluster`` call, in
+    blocks of ``per_read`` sweeps, or with ``per_sweep_propagate`` when
+    ``per_read`` is None."""
+    segm.host_reads = segm.sweeps = 0
+    kept = segm._propagate, segm._SWEEPS_PER_READ
+    if per_read is None:
+        segm._propagate = per_sweep_propagate
+    else:
+        segm._SWEEPS_PER_READ = per_read
+    try:
+        labels = segm.euclidean_cluster(cloud, **kw)
+    finally:
+        segm._propagate, segm._SWEEPS_PER_READ = kept
+    return labels.numpy(), segm.host_reads, segm.sweeps
+
+
+@pytest.mark.parametrize("per_read", [2, 3, 8, 64])
+def test_cluster_blocks_equal_the_per_sweep_loop(per_read):
+    """Blocks of sweeps give the labels of the loop that reads the flag
+    after every sweep (``per_sweep_propagate``) and JAX's ``while_loop``,
+    with one host read per block."""
+    pts = cluster_scene()
+    cj, ct = both(pts)
+    ref, ref_reads, ref_sweeps = counted_cluster(ct, tolerance=0.4)
+    got, reads, sweeps = counted_cluster(ct, per_read, tolerance=0.4)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, np.asarray(sg_j.euclidean_cluster(cj, tolerance=0.4)))
+    assert sweeps == ref_sweeps == ref_reads < 64
+    assert reads == -(-ref_sweeps // per_read)
+
+
+def test_cluster_stops_at_max_sweeps_in_a_block():
+    """A shuffled chain needs more sweeps than ``max_sweeps`` = 11: blocks
+    of 4 run 4 + 4 + 3 sweeps, and the unconverged labels equal the per-sweep
+    loop's and JAX's at the same cap."""
+    n = 200
+    pts = np.column_stack([np.arange(n) * 0.4, np.zeros(n), np.zeros(n)]).astype(np.float32)
+    pts = pts[np.random.default_rng(0).permutation(n)]
+    cj, ct = both(pts)
+    ref, _, ref_sweeps = counted_cluster(ct, tolerance=0.5, max_sweeps=11)
+    got, reads, sweeps = counted_cluster(ct, 4, tolerance=0.5, max_sweeps=11)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        got, np.asarray(sg_j.euclidean_cluster(cj, tolerance=0.5, max_sweeps=11)))
+    assert (reads, sweeps, ref_sweeps) == (3, 11, 11)
+    assert len(set(got.tolist())) > 1  # the cap cut the propagation short
+
+
+def test_cluster_sweep_block_is_capture_safe(monkeypatch):
+    """Each block of sweeps under the capture guards of
+    ``test_torch_graphs.py`` after a warm-up call on the same values: a
+    block makes no host read, so the host reads once per block."""
+    from test_torch_graphs import guarded
+
+    blocks = []
+    plain = segm._sweeps
+
+    def sweeps(count):
+        run = plain(count)
+
+        def block(carry):
+            blocks.append(count)
+            return guarded(run, carry)
+
+        return block
+
+    monkeypatch.setattr(segm, "_sweeps", sweeps)
+    _, ct = both(cluster_scene())
+    got, reads, n_sweeps = counted_cluster(ct, 3, tolerance=0.4)
+    ref, _, _ = counted_cluster(ct, tolerance=0.4)
+    np.testing.assert_array_equal(got, ref)
+    assert n_sweeps > 3 and blocks == [3] * reads
+
+
 @pytest.mark.parametrize("cfg", [None, sg_j.GroundSegConfig(
     grid_resolution=0.3, cell_percentile=0.5, ground_thickness=0.2, max_ground_height=1.0,
     min_points_per_cell=3)])

@@ -227,7 +227,7 @@ def test_windowed_refuses_what_it_cannot_run():
     mesh = cpu_mesh()
     for cfg in (config(ft, "LOCAL"), config(ft, range_max=None)):
         with pytest.raises(ValueError):
-            sh._blocks_step(geom, cfg, mesh, None, None, False, {})
+            sh._plan(geom, cfg, mesh, None, None, False, {})
         step, _ = sh.build_sharded_integrate(geom, cfg, mesh)
         assert step.formulation == "blocks_fullmap"
     with pytest.raises(ValueError, match="divisible"):
