@@ -62,10 +62,14 @@ from fastdem_tpu_torch.mapping import rasterize as raster
 from fastdem_tpu_torch.ops import resample as k4
 from fastdem_tpu_torch.postprocess import raycasting as raycast
 from fastdem_tpu_torch.sensors.models import create_sensor_model
-from fastdem_tpu_torch.utils import graphs
+from fastdem_tpu_torch.utils import graphs, tracing
 from fastdem_tpu_torch.utils.colors import pack_rgb
 
 log = logging.getLogger("fastdem_tpu_torch")
+
+_INTEGRATE = tracing.name_id("facade.integrate")
+_PREP = tracing.name_id("facade.prep")
+_CALLBACKS = tracing.name_id("facade.callbacks")
 
 
 def _check_config(cfg: Config) -> None:
@@ -1155,37 +1159,64 @@ class FastDEM:
     def integrate(self, cloud, T_base_sensor=None, T_world_base=None) -> bool:
         """Integrate one scan. With explicit transforms the cloud is taken
         as given; without, the providers are queried. Returns False and
-        drops the scan on any failure, like the reference."""
+        drops the scan on any failure, like the reference.
+
+        Spans: ``facade.integrate`` (a new scan id unless the caller's
+        thread carries one) around ``facade.prep`` (provider lookups, the
+        bucket, the copy to the device, the pad, the transforms), the
+        step's ``step.call``, and ``facade.callbacks`` (the aux's trim, the
+        out-of-window check and the observation callbacks)."""
+        h = tracing.begin_scan(_INTEGRATE)
+        try:
+            sp = tracing.begin(_PREP)
+            prepared = self._prepare(cloud, T_base_sensor, T_world_base)
+            tracing.end(sp)
+            if prepared is None:
+                return False
+            cloud, stepped, T_bs, T_wb, intensity, color_packed = prepared
+            self.state, aux = self._step(
+                self.state, stepped.xyz, stepped.mask, T_bs, T_wb, intensity, color_packed
+            )
+            sp = tracing.begin(_CALLBACKS)
+            self._finish(cloud, stepped, aux)
+            tracing.end(sp)
+            return True
+        finally:
+            tracing.end_scan(h)
+
+    def _prepare(self, cloud, T_base_sensor, T_world_base):
+        """The step's inputs on the device, or None when the scan is
+        dropped."""
         if T_base_sensor is None or T_world_base is None:
             if not self.has_transform_provider():
                 log.error(
                     "[FastDEM] Transform providers not set; use explicit "
                     "transforms or set providers first."
                 )
-                return False
+                return None
             if cloud is None or cloud.empty():
                 log.warning("[FastDEM] Received empty or null cloud. Skipping...")
-                return False
+                return None
             if not cloud.frame_id:
                 log.error("[FastDEM] Input cloud has no frameId. Skipping...")
-                return False
+                return None
             T_base_sensor = self.calibration.get_extrinsic(cloud.frame_id)
             if T_base_sensor is None:
                 log.warning(
                     "[FastDEM] Calibration not available for '%s'. Skipping...",
                     cloud.frame_id,
                 )
-                return False
+                return None
             T_world_base = self.odometry.get_pose_at(cloud.timestamp_ns)
             if T_world_base is None:
                 log.warning(
                     "[FastDEM] Odometry not available at %d. Skipping...",
                     cloud.timestamp_ns,
                 )
-                return False
+                return None
         elif cloud is None or cloud.empty():
             log.warning("[FastDEM] Received empty cloud. Skipping...")
-            return False
+            return None
 
         if (
             self.auto_bucket
@@ -1215,9 +1246,11 @@ class FastDEM:
         T_wb = torch.as_tensor(
             T_world_base, dtype=torch.float32, device=self.device
         )
-        self.state, aux = self._step(
-            self.state, stepped.xyz, stepped.mask, T_bs, T_wb, intensity, color_packed
-        )
+        return cloud, stepped, T_bs, T_wb, intensity, color_packed
+
+    def _finish(self, cloud, stepped, aux) -> None:
+        """After the step: the aux trimmed to the scan, the out-of-window
+        backstop, the observation callbacks."""
         if stepped is not cloud:
             n = cloud.capacity
             aux = dataclasses.replace(aux, world_xyz=aux.world_xyz[:n],
@@ -1240,7 +1273,6 @@ class FastDEM:
             self.on_preprocessed(aux)
         if self.on_rasterized is not None:
             self.on_rasterized(self.rasterized_cloud(aux))
-        return True
 
     def _guard_margin(self, T_bs: np.ndarray) -> None:
         """The window and polar-field bounds assume the base->sensor xy

@@ -28,6 +28,17 @@ under the lock too. So while a graph is captured no other thread of the
 node runs device work except the host reads (``interop.to_host``) and
 the next scans' staging, and those stay on the default stream, which the
 capture's own non-blocking stream does not wait for.
+
+Spans (``utils/tracing.py``): a scan gets its id in ``on_scan``, and the
+queued scan carries it to the intake thread with the time it was queued:
+``node.queue`` (queued until the intake thread takes it, the scan's
+``timestamp_ns`` as its ``attr``), ``node.stage`` (the stage-ahead copy,
+under the staged scan's id), ``node.lock_wait`` (from letting the waiting
+readers in until the lock is held), then the facade's spans. Each timer
+tick is ``node.tick.<timer>`` (the source of ``tick_ms``), with
+``node.lock_wait``, ``node.lock_held``, ``node.to_host``, ``pp.chain`` and
+``node.publish`` inside. ``dropped_scans`` and ``intake_errors`` are the
+counters ``node.dropped_scans`` and ``node.intake_errors``.
 """
 
 from __future__ import annotations
@@ -52,9 +63,17 @@ from fastdem_tpu_torch.grid.gridmap import GridMapState, layers
 from fastdem_tpu_torch.interop import host_state, to_host
 from fastdem_tpu_torch.mapping.pipeline import FastDEM
 from fastdem_tpu_torch.postprocess import apply_postprocess_fn
-from fastdem_tpu_torch.utils import graphs
+from fastdem_tpu_torch.utils import graphs, tracing
 
 log = logging.getLogger("fastdem_tpu_torch.runtime")
+
+_QUEUE = tracing.name_id("node.queue")
+_STAGE = tracing.name_id("node.stage")
+_LOCK_WAIT = tracing.name_id("node.lock_wait")
+_LOCK_HELD = tracing.name_id("node.lock_held")
+_TO_HOST = tracing.name_id("node.to_host")
+_CHAIN = tracing.name_id("pp.chain")
+_PUBLISH = tracing.name_id("node.publish")
 
 # Layers of the post-processing snapshot.
 SNAPSHOT_LAYERS = (layers.elevation, layers.upper_bound, layers.lower_bound)
@@ -69,6 +88,14 @@ def build_kernels() -> None:
     cuda_build.build(k1.SOURCE, k4.SOURCE)
     k1.library()
     k4.library()
+
+
+def _to_host(arrays):
+    """``interop.to_host`` as the span ``node.to_host``."""
+    sp = tracing.begin(_TO_HOST)
+    out = to_host(arrays)
+    tracing.end(sp)
+    return out
 
 
 class _HandoffLock:
@@ -176,6 +203,8 @@ class MappingDriver:
         self._inflight = 0
         self._qcond = threading.Condition()
         self._intake_thread: Optional[threading.Thread] = None
+        tracing.register("node.dropped_scans", self, "dropped_scans")
+        tracing.register("node.intake_errors", self, "intake_errors")
         if async_intake:
             self._intake_thread = threading.Thread(target=self._intake_loop, daemon=True)
             self._intake_thread.start()
@@ -196,17 +225,19 @@ class MappingDriver:
         worker integrates it; backlogs integrate in bursts and the oldest
         queued scans drop under overload (``dropped_scans``).
         """
+        scan = tracing.new_scan()
         if self.async_intake:
+            t = time.perf_counter_ns()
             with self._qcond:
                 if self._stop.is_set():
                     return False
-                self._queue.append((cloud, T_base_sensor, T_world_base))
+                self._queue.append((cloud, T_base_sensor, T_world_base, scan, t))
                 while len(self._queue) > self.max_queue:
                     self._queue.pop(0)
                     self.dropped_scans += 1
                 self._qcond.notify()
             return True
-        return self._integrate_burst([(cloud, T_base_sensor, T_world_base)]) == 1
+        return self._integrate_burst([(cloud, T_base_sensor, T_world_base, scan, 0)]) == 1
 
     def _count(self, n: int) -> None:
         self._scan_count += n
@@ -225,16 +256,26 @@ class MappingDriver:
                 del self._queue[: len(items)]
                 self._inflight = len(items)
                 to_stage = list(self._queue[: self.burst_batch]) if self.stage_ahead else []
+            taken = time.perf_counter_ns()
+            for c, _, _, scan, queued in items:
+                tracing.record(_QUEUE, queued, taken, scan=scan,
+                               attr=getattr(c, "timestamp_ns", 0) or 0)
             if to_stage:
                 # Start the next burst's copies while this one computes.
                 # Entries are re-matched by identity under a short
                 # re-acquire, so drops that happened meanwhile stay intact.
                 staged = []
-                for c, tbs, twb in to_stage:
+                for orig in to_stage:
+                    c, tbs, twb, scan, queued = orig
+                    tracing.set_scan(scan)
+                    sp = tracing.begin(_STAGE)
                     try:
-                        staged.append(((c, tbs, twb), (stage(c, self.device), tbs, twb)))
+                        staged.append((orig, (stage(c, self.device), tbs, twb, scan, queued)))
                     except Exception:  # noqa: BLE001
                         break
+                    finally:
+                        tracing.end(sp)
+                tracing.set_scan(0)
                 if staged:
                     with self._qcond:
                         for orig, new in staged:
@@ -260,13 +301,32 @@ class MappingDriver:
         tick sees the map between two scans of a burst, as it does under
         sync intake."""
         n = 0
-        for c, tbs, twb in items:
-            self._lock.let_waiters_in()
-            with self._lock:
-                if self.mapper.integrate(c, tbs, twb):
-                    n += 1
-                    self._count(1)
+        try:
+            for c, tbs, twb, scan, _ in items:
+                tracing.set_scan(scan)
+                sp = tracing.begin(_LOCK_WAIT)
+                self._lock.let_waiters_in()
+                with self._lock:
+                    tracing.end(sp)
+                    if self.mapper.integrate(c, tbs, twb):
+                        n += 1
+                        self._count(1)
+        finally:
+            tracing.set_scan(0)
         return n
+
+    @contextlib.contextmanager
+    def _held(self):
+        """The lock, with the wait for it and the time it is held as spans
+        (``node.lock_wait``, ``node.lock_held``)."""
+        sp = tracing.begin(_LOCK_WAIT)
+        with self._lock:
+            tracing.end(sp)
+            sp = tracing.begin(_LOCK_HELD)
+            try:
+                yield
+            finally:
+                tracing.end(sp)
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Block until the async intake queue is empty and no burst is in
@@ -296,13 +356,17 @@ class MappingDriver:
         self._timers.append(t)
 
     def _loop(self, name, fn, period):
+        tick = tracing.name_id(f"node.tick.{name}")
         while not self._stop.wait(period):
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
+            sp = tracing.begin(tick, t0)
             try:
                 fn()
             except Exception:  # noqa: BLE001 - timers must not die
                 log.exception("driver timer error")
-            self.tick_ms[name].append((time.perf_counter() - t0) * 1000.0)
+            t1 = time.perf_counter_ns()
+            tracing.end(sp, t1)
+            self.tick_ms[name].append((t1 - t0) * 1e-6)
 
     def close(self):
         if self.async_intake and not self.drain(timeout=120.0):
@@ -370,10 +434,12 @@ class MappingDriver:
         chain runs outside the lock."""
         fn = self.postprocess_fn(uf, inpaint, features)
         on_card = self.mapper.device.type == "cuda"
-        with self._lock if on_card else contextlib.nullcontext():
+        with self._held() if on_card else contextlib.nullcontext():
             snap = self.snapshot()
+            sp = tracing.begin(_CHAIN)
             out = fn(*(snap.layers[k] for k in SNAPSHOT_LAYERS))
-        result = to_host(out)
+            tracing.end(sp)
+        result = _to_host(out)
         self.postprocess_result = result
         self._publish("postprocess", result)
         return result
@@ -404,7 +470,7 @@ class MappingDriver:
         # concurrent integrates: every non-internal layer (every layer when
         # the npz artifact is written), the position and the last scan's
         # surviving points.
-        with self._lock:
+        with self._held():
             state = self.mapper.state
             names = [k for k in state.layers
                      if self.artifact_dir or not gm.is_internal(k)]
@@ -414,7 +480,7 @@ class MappingDriver:
             if aux is not None:
                 arrays["scan_xyz"] = aux.world_xyz
                 arrays["scan_mask"] = aux.world_mask
-            host = to_host(arrays)
+            host = _to_host(arrays)
             scan_count = self._scan_count
         host_map = SimpleNamespace(
             layers={k: host[("layer", k)] for k in names}, position=host["position"]
@@ -452,16 +518,19 @@ class MappingDriver:
     def _publish(self, topic: str, payload):
         sink = self.sinks.get(topic)
         if sink is not None:
+            sp = tracing.begin(_PUBLISH)
             try:
                 sink(payload)
             except Exception:  # noqa: BLE001
                 log.exception("sink '%s' failed", topic)
+            finally:
+                tracing.end(sp)
 
     def _global_loop(self):
         """Global-submap publishing around the robot."""
         if self._scan_count == 0:
             return
-        with self._lock:
+        with self._held():
             center = host_state(self.mapper.state, [])[1]
         payload = self.submap(tuple(center), self.global_window)
         payload["center"] = center
@@ -470,12 +539,12 @@ class MappingDriver:
     def submap(self, center_xy, length_xy) -> Dict[str, np.ndarray]:
         """The non-internal layers on the submap of extent ``length_xy``
         around ``center_xy``, as host arrays."""
-        with self._lock:
+        with self._held():
             state = self.mapper.state
             position = host_state(state, [])[1]
             rs, cs = gm.submap_slices(self.geom, position, center_xy, length_xy)
-            return to_host({k: v[rs, cs] for k, v in state.layers.items()
-                            if not gm.is_internal(k)})
+            return _to_host({k: v[rs, cs] for k, v in state.layers.items()
+                             if not gm.is_internal(k)})
 
     def _banner(self):
         cfg = self.mapper.cfg

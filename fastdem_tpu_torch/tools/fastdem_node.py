@@ -15,7 +15,11 @@ Scan sources:
 
 Usage:
   python -m fastdem_tpu_torch.tools.fastdem_node --preset local_mapping \\
-      --synthetic 20 --out DIR [--device cuda] [--program-cache DIR]
+      --synthetic 20 --out DIR [--device cuda] [--program-cache DIR] \\
+      [--trace-out spans.json]
+
+``--trace-out`` writes the flight recorder's spans (``utils/tracing.py``)
+as a Chrome trace when the node exits, also after an error or Ctrl-C.
 """
 
 import argparse
@@ -53,8 +57,21 @@ def main(argv=None):
     ap.add_argument("--live-port", type=int, default=None,
                     help="serve the live 3D viewer on this port while mapping "
                          "(0 = pick a free port); browse the printed URL")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the recorded spans as a Chrome trace (JSON) here at exit")
     args = ap.parse_args(argv)
     enable_program_cache(args)
+    try:
+        return run(args)
+    finally:
+        if args.trace_out:
+            from fastdem_tpu_torch.utils import tracing
+
+            n = tracing.export_chrome(args.trace_out)
+            print(f"spans -> {args.trace_out}: {n}", file=sys.stderr)
+
+
+def run(args):
 
     from fastdem_tpu_torch.cloud import pointcloud as pc
     from fastdem_tpu_torch.grid.gridmap import layers

@@ -72,6 +72,15 @@ them.
 ``fn`` eagerly on the same device (the kernels are loaded, the library
 handles made): its first call captures and replays, with no run whose
 result is dropped.
+
+Spans (``utils/tracing.py``): ``step.call`` around every call, with
+``step.copy_in``, ``step.launch`` and ``step.clone_out`` inside a replay and
+``step.capture`` around a first call (counted in ``step.captures``); on the
+card ``step.device`` from the end of the enqueue to the work's completion
+on the device, and a reading of the allocator's device allocations every
+``tracing.ALLOC_EVERY`` calls. Each graph's ``GraphStats.replays`` is the
+counter ``graphs.replays``, K1's and K4's ``launches`` the counters
+``polar_field.launches`` and ``resample.launches``.
 """
 
 from __future__ import annotations
@@ -85,7 +94,16 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from fastdem_tpu_torch.utils import tracing
+
 _LEAF = "tensor"
+
+_CALL = tracing.name_id("step.call")
+_COPY_IN = tracing.name_id("step.copy_in")
+_LAUNCH = tracing.name_id("step.launch")
+_CLONE_OUT = tracing.name_id("step.clone_out")
+_CAPTURE = tracing.name_id("step.capture")
+_DEVICE = tracing.name_id("step.device")
 
 # Modules whose ``launches`` counter the graphs keep (``count_launches``).
 _COUNTED: List[Any] = []
@@ -93,9 +111,11 @@ _COUNTED: List[Any] = []
 
 def count_launches(module) -> None:
     """Keep ``module.launches`` (an int its kernel wrapper adds one to per
-    launch) true through the replays of every graph."""
+    launch) true through the replays of every graph; it is the counter
+    ``<module>.launches`` of ``tracing.counters()``."""
     if module not in _COUNTED:
         _COUNTED.append(module)
+        tracing.register(module.__name__.rsplit(".", 1)[-1] + ".launches", module, "launches")
 
 
 @contextlib.contextmanager
@@ -269,6 +289,7 @@ class _Graph:
             slot_bytes=sum(s.numel() * s.element_size() for s in self.slots),
             launches_per_replay={m.__name__: n for m, n in self.per_replay.items()},
         )
+        tracing.register("graphs.replays", self.stats, "replays")
 
     def _bind_outputs(self, out, spec0, n_donated, donate, label):
         """Inside the capture: write the donated output into its slots, and
@@ -304,15 +325,22 @@ class _Graph:
     def replay(self, leaves):
         """Copy the inputs into the slots, replay, and return the outputs
         (the donated ones as the slots, the others cloned)."""
+        sp = tracing.begin(_COPY_IN)
         for s, t in zip(self.slots, leaves):
             if not _same_memory(s, t):
                 s.copy_(t)
+        tracing.end(sp)
+        sp = tracing.begin(_LAUNCH)
         self.graph.replay()
+        tracing.end(sp)
         self.stats.replays += 1
         for m, n in self.per_replay.items():
             m.launches += n
+        sp = tracing.begin(_CLONE_OUT)
         outs = self.outs[: self.donated] + [o.clone() for o in self.outs[self.donated:]]
-        return _unflatten(self.out_spec, outs)
+        out = _unflatten(self.out_spec, outs)
+        tracing.end(sp)
+        return out
 
 
 def _describe(leaves) -> str:
@@ -335,6 +363,13 @@ class CompiledStep:
         self._lock = threading.Lock()
 
     def __call__(self, *args, **kwargs):
+        sp = tracing.begin(_CALL)
+        try:
+            return self._call(args, kwargs)
+        finally:
+            tracing.end(sp)
+
+    def _call(self, args, kwargs):
         spec0, leaves0 = _flatten(args[0]) if args else (None, [])
         spec, leaves = _flatten((args, kwargs))
         dev = leaves[0].device if leaves else None
@@ -346,22 +381,34 @@ class CompiledStep:
         with self._lock:
             graph = self.graphs.get(key)
             if graph is not None:
-                return graph.replay(leaves)
-            t0 = time.perf_counter()
-            if self._pool is None:
-                self._pool = BACKEND.new_pool(dev)
-            try:
-                # The first argument's leaves lead ``leaves``.
-                graph = _Graph(self.fn, spec, leaves, spec0, len(leaves0), self.donate,
-                               self.warm, self.name, self._pool)
-            except BaseException:
-                self._pool = None  # later captures start a pool of their own
-                raise
-            out = graph.replay(leaves)
-            BACKEND.synchronize(dev)
-            graph.stats.capture_seconds = time.perf_counter() - t0
-            self.graphs[key] = graph
+                out = graph.replay(leaves)
+            else:
+                out = self._capture(key, spec, leaves, spec0, len(leaves0), dev)
+            if dev.type == "cuda":
+                tracing.device_span(_DEVICE, dev)
+                tracing.sample_allocs(dev)
             return out
+
+    def _capture(self, key, spec, leaves, spec0, n_donated, dev):
+        """The first call of a signature: capture, replay once, keep."""
+        t0 = time.perf_counter()
+        sp = tracing.begin(_CAPTURE)
+        tracing.count("step.captures")
+        if self._pool is None:
+            self._pool = BACKEND.new_pool(dev)
+        try:
+            # The first argument's leaves lead ``leaves``.
+            graph = _Graph(self.fn, spec, leaves, spec0, n_donated, self.donate,
+                           self.warm, self.name, self._pool)
+        except BaseException:
+            self._pool = None  # later captures start a pool of their own
+            raise
+        out = graph.replay(leaves)
+        BACKEND.synchronize(dev)
+        tracing.end(sp)
+        graph.stats.capture_seconds = time.perf_counter() - t0
+        self.graphs[key] = graph
+        return out
 
     def stats(self) -> List[GraphStats]:
         """One entry per captured signature, in capture order."""

@@ -1143,3 +1143,64 @@ def test_device_profile_sees_every_launch_on_card(cuda):
         ms, events, by_name, _ = profiling.device_profile(lambda: x.add_(1.0), 50)
         assert events == 1.0 and ms > 0.0 and len(by_name) == 1
     assert float(x[0]) == 20 * 50
+
+
+def test_spans_share_the_device_trace_clock_on_card(cuda, tmp_path):
+    """Under a CUDA-only profiler window, as the benchmark records it, a span
+    around a 5 ms sleep and a launch brackets the kernel's start in kineto's
+    trace once exported to the wall clock; the step's ``step.device`` span
+    resolves for every scan, in the scan's id."""
+    import json
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastdem_tpu_torch.utils import tracing
+
+    x = torch.zeros(1 << 20, device=cuda)
+    x.add_(1.0)
+    torch.cuda.synchronize()
+    tracing.reset()
+    name = tracing.name_id("test.bracket")
+    wall0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        h = tracing.begin(name)
+        time.sleep(0.005)
+        x.add_(1.0)
+        torch.cuda.synchronize()
+        tracing.end(h)
+        time.sleep(0.02)
+    wall1 = time.time_ns()
+    # This window's kernels: kineto's wall clock against the host's reads.
+    kernels = [e.start_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+               and wall0 <= e.start_ns() <= wall1]
+    assert len(kernels) == 1
+    path = tmp_path / "spans.json"
+    tracing.export_chrome(str(path))
+    ev = next(e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("name") == "test.bracket" and e["ph"] == "X")
+    start, stop = ev["ts"] * 1e3, (ev["ts"] + ev["dur"]) * 1e3
+    assert start + 4e6 <= kernels[0] <= stop
+
+    cfg = fd.Config()
+    cfg.raycasting.enabled = False
+    mapper = fd.FastDEM(fd.GridGeometry.from_length(15.0, 15.0, 0.1), cfg, device=cuda)
+    xyz, poses = replay_scans(5)
+    T_bs = np.eye(4, dtype=np.float32)
+    tracing.reset()
+    for k in range(5):
+        assert mapper.integrate(fd.cloud.from_numpy(xyz[k], frame_id="lidar", device="cpu"),
+                                T_bs, poses[k])
+    tab = tracing.table()
+    # This thread's scans (other threads of the process may be recording).
+    fi = np.flatnonzero(tab.name == tab.id_of("facade.integrate"))
+    fi = fi[tab.thread[fi] == tab.thread[fi[-1]]]
+    scans = set(tab.scan[fi].tolist())
+    dev = np.flatnonzero(tab.name == tab.id_of("step.device"))
+    dev = dev[np.isin(tab.scan[dev], list(scans))]
+    assert len(scans) == len(dev) == 5
+    assert set(tab.scan[dev].tolist()) == scans
+    assert (tab.end[dev] >= tab.start[dev]).all(), tab.durations_ms(dev)
