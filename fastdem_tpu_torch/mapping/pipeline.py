@@ -59,6 +59,7 @@ from fastdem_tpu_torch.grid.gridmap import GridMapState, layers
 from fastdem_tpu_torch.mapping import kalman as kalman_est
 from fastdem_tpu_torch.mapping import p2 as p2_est
 from fastdem_tpu_torch.mapping import rasterize as raster
+from fastdem_tpu_torch.mapping import staging
 from fastdem_tpu_torch.ops import resample as k4
 from fastdem_tpu_torch.postprocess import raycasting as raycast
 from fastdem_tpu_torch.sensors.models import create_sensor_model
@@ -1073,6 +1074,8 @@ class FastDEM:
         # integrate() cannot see.
         self._oow_check_every = 64
         self._scan_counter = 0
+        # A CUDA facade's scan inputs go through pinned buffers (_stage).
+        self._ring = staging.StagingRing(self.device) if self.device.type == "cuda" else None
         self._step = self._build_step()
         self.calibration = None  # provider with get_extrinsic(frame_id)
         self.odometry = None  # provider with get_pose_at(timestamp_ns)
@@ -1161,11 +1164,26 @@ class FastDEM:
         as given; without, the providers are queried. Returns False and
         drops the scan on any failure, like the reference.
 
+        On a CUDA facade the inputs go through a ring of pinned buffers
+        (``staging.StagingRing``): a host cloud's points, mask and the
+        channels the step reads, padded on the host to the step's capacity,
+        and the transforms as host f32, in one asynchronous copy on the
+        current stream; of a cloud already on a device only the transforms
+        (a pose given as a CUDA tensor stays there). The call blocks only
+        where the ring's next buffer is still being copied from, which
+        bounds how far the host runs ahead of the device, and every 64th
+        scan, on the out-of-window check. A CPU facade copies and pads as
+        the reference does.
+
         Spans: ``facade.integrate`` (a new scan id unless the caller's
         thread carries one) around ``facade.prep`` (provider lookups, the
-        bucket, the copy to the device, the pad, the transforms), the
-        step's ``step.call``, and ``facade.callbacks`` (the aux's trim, the
-        out-of-window check and the observation callbacks)."""
+        bucket, the staging or the copy to the device and the pad, the
+        transforms; ``facade.stage_wait`` inside it where the buffer was in
+        flight), the step's ``step.call``, and ``facade.callbacks`` (the
+        aux's trim, the out-of-window check and the observation
+        callbacks). Counters: ``facade.staged`` (scans whose inputs went
+        through the ring), ``facade.stage_waits`` (scans that waited for
+        their buffer: the device set the pace)."""
         h = tracing.begin_scan(_INTEGRATE)
         try:
             sp = tracing.begin(_PREP)
@@ -1186,7 +1204,8 @@ class FastDEM:
 
     def _prepare(self, cloud, T_base_sensor, T_world_base):
         """The step's inputs on the device, or None when the scan is
-        dropped."""
+        dropped: through the pinned ring on a CUDA facade (``_stage``),
+        else copied and padded on the device."""
         if T_base_sensor is None or T_world_base is None:
             if not self.has_transform_provider():
                 log.error(
@@ -1224,34 +1243,69 @@ class FastDEM:
             and pc.ladder_capacity(cloud.valid_count) < cloud.capacity * 0.75
         ):
             cloud = pc.compact_to_bucket(cloud)
-        if cloud.device != self.device:
-            cloud = cloud.to(self.device)
         # The compiled step holds a graph per scan size: padding at the tail
         # to a power of two bounds them to one per doubling. The padding is
         # masked out, keeps the points' indices and, being at most the next
         # power of two, the rasterizer's argmin index width, so the map is
         # the unpadded scan's bit for bit.
-        stepped = cloud
+        cap = cloud.capacity
         if isinstance(self._step, graphs.CompiledStep):
-            stepped = pc.pad_to(cloud, pc.ladder_capacity(cloud.capacity, base=1))
+            cap = pc.ladder_capacity(cap, base=1)
+
+        T_bs_host = _host_f32(T_base_sensor)
+        self._guard_margin(T_bs_host)
+        stepped = None
+        if self._ring is not None:
+            stepped, T_bs, T_wb = self._stage(cloud, cap, T_bs_host, T_world_base)
+        else:
+            T_bs = torch.as_tensor(T_bs_host, device=self.device)
+            T_wb = torch.as_tensor(T_world_base, dtype=torch.float32, device=self.device)
+        if stepped is None:
+            if cloud.device != self.device:
+                cloud = cloud.to(self.device)
+            stepped = pc.pad_to(cloud, cap)
 
         intensity = stepped.channels.get("intensity") if self.has_intensity else None
         color_packed = None
         if self.has_color and "color" in stepped.channels:
             color_packed = pack_rgb(stepped.channels["color"])
-
-        T_bs_host = _host_f32(T_base_sensor)
-        self._guard_margin(T_bs_host)
-        T_bs = torch.as_tensor(T_bs_host, device=self.device)
-        T_wb = torch.as_tensor(
-            T_world_base, dtype=torch.float32, device=self.device
-        )
         return cloud, stepped, T_bs, T_wb, intensity, color_packed
+
+    def _stage(self, cloud, cap, T_bs_host, T_world_base):
+        """A CUDA facade's inputs through its pinned ring
+        (``staging.StagingRing``), in one asynchronous copy: the transforms
+        as host f32 (a pose given as a CUDA tensor stays on the device) and
+        a host cloud's points, mask and the channels the step reads, padded
+        on the host to ``cap`` as ``pad_to`` pads. Returns (the padded
+        cloud, or None for a cloud on a device, T_bs, T_wb)."""
+        parts = {"T_bs": staging.Part(T_bs_host, T_bs_host.shape[0])}
+        pose_on_device = isinstance(T_world_base, torch.Tensor) and T_world_base.is_cuda
+        if not pose_on_device:
+            T_wb_host = _host_f32(T_world_base)
+            parts["T_wb"] = staging.Part(T_wb_host, T_wb_host.shape[0])
+        host_cloud = cloud.device.type == "cpu"
+        if host_cloud:
+            used = [k for k, on in (("intensity", self.has_intensity),
+                                    ("color", self.has_color)) if on and k in cloud.channels]
+            parts["xyz"] = staging.Part(cloud.xyz.numpy(), cap, 1e9)
+            parts["mask"] = staging.Part(cloud.mask.numpy(), cap, False)
+            for k in used:
+                parts[k] = staging.Part(cloud.channels[k].numpy(), cap)
+        got = self._ring.put(parts)
+        stepped = None
+        if host_cloud:
+            stepped = dataclasses.replace(
+                cloud, xyz=got["xyz"], mask=got["mask"],
+                channels={k: got[k] for k in used},
+            )
+        T_wb = (torch.as_tensor(T_world_base, dtype=torch.float32, device=self.device)
+                if pose_on_device else got["T_wb"])
+        return stepped, got["T_bs"], T_wb
 
     def _finish(self, cloud, stepped, aux) -> None:
         """After the step: the aux trimmed to the scan, the out-of-window
         backstop, the observation callbacks."""
-        if stepped is not cloud:
+        if stepped.capacity != cloud.capacity:
             n = cloud.capacity
             aux = dataclasses.replace(aux, world_xyz=aux.world_xyz[:n],
                                       world_mask=aux.world_mask[:n], z_var=aux.z_var[:n])

@@ -28,7 +28,10 @@ per block per scan), two gloo processes on the card against one process,
 the sharded post-processing chain against the unsharded one, and a
 program-cache bundle that a second process loads without building; the
 packed, twophase and sort steps on the card against the CPU, and the
-microbatch and fused replay steps against the step loop.
+microbatch and fused replay steps against the step loop; the facade's
+pinned staging ring against the blocking input path bit for bit (mixed
+sizes, host arrays overwritten while the ring comes round), without a
+synchronisation in steady state, and its counters.
 """
 
 import numpy as np
@@ -1204,3 +1207,138 @@ def test_spans_share_the_device_trace_clock_on_card(cuda, tmp_path):
     assert len(scans) == len(dev) == 5
     assert set(tab.scan[dev].tolist()) == scans
     assert (tab.end[dev] >= tab.start[dev]).all(), tab.durations_ms(dev)
+
+
+def blocking_loop(mapper, clouds, T_bs, poses):
+    """The facade's input path before its staging ring, written out: each
+    cloud copied to the card from pageable memory, padded there to the
+    next power of two, the transforms copied one by one, then the step."""
+    from fastdem_tpu_torch.cloud import pointcloud as pc
+
+    dev = mapper.device
+    for c, T_wb in zip(clouds, poses):
+        g = c.to(dev)
+        g = pc.pad_to(g, pc.ladder_capacity(g.capacity, base=1))
+        mapper.state, _ = mapper._step(
+            mapper.state, g.xyz, g.mask,
+            torch.as_tensor(np.asarray(T_bs, dtype=np.float32), device=dev),
+            torch.as_tensor(T_wb, dtype=torch.float32, device=dev),
+            g.channels.get("intensity") if mapper.has_intensity else None, None)
+    torch.cuda.synchronize()
+
+
+def staging_pair(cuda, has_intensity=False):
+    geom = fd.GridGeometry.from_length(15.0, 15.0, 0.1)
+    cfg = fd.Config()
+    cfg.raycasting.enabled = True
+    return [fd.FastDEM(geom, cfg, has_intensity=has_intensity, device=cuda) for _ in range(2)]
+
+
+def test_staged_facade_equals_blocking_path_on_card(cuda):
+    """64 scans of six sizes with intensity through the facade's pinned
+    ring (host clouds, and every fifth one already on the card, with its
+    pose as a CUDA tensor) map as the blocking path, bit for bit."""
+    xyz, poses = replay_scans(64, seed=21)
+    rng = np.random.default_rng(21)
+    sizes = (30000, 17000, 9000, 16384, 24000, 4096)
+    T_bs = np.eye(4)
+    T_bs[2, 3] = 1.0
+    clouds = []
+    for k in range(64):
+        n = sizes[k % len(sizes)]
+        clouds.append(fd.cloud.from_numpy(
+            xyz[k][:n], frame_id="lidar", device="cpu",
+            intensity=rng.uniform(0, 255, n).astype(np.float32)))
+    staged, ref = staging_pair(cuda, has_intensity=True)
+    for k, c in enumerate(clouds):
+        if k % 5 == 4:
+            assert staged.integrate(c.to(cuda), T_bs, torch.tensor(poses[k], device=cuda))
+        else:
+            assert staged.integrate(c, T_bs, poses[k])
+    torch.cuda.synchronize()
+    blocking_loop(ref, clouds, T_bs, poses)
+    assert_bitwise_on_card(ref.state, staged.state)
+
+
+def test_staged_inputs_survive_overwrites_on_card(cuda):
+    """Three times as many scans as the ring has buffers, queued behind a
+    long kernel so the ring comes round while its copies wait, each scan's
+    host arrays overwritten right after its call without a
+    synchronisation: the map equals the blocking path's bit for bit."""
+    from fastdem_tpu_torch.mapping import staging
+
+    K = 3 * staging.DEPTH
+    xyz, poses = replay_scans(K, seed=23)
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[2, 3] = 1.0
+    staged, ref = staging_pair(cuda)
+    cloud = fd.cloud.from_numpy(xyz[0], frame_id="lidar", device="cpu")
+    pose = poses[0].copy()
+    assert staged.integrate(cloud, T_bs, pose)  # the capture, outside the race
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    for k in range(1, K):
+        cloud.xyz.copy_(torch.from_numpy(xyz[k]))
+        pose[:] = poses[k]
+        assert staged.integrate(cloud, T_bs, pose)
+        cloud.xyz.fill_(float("nan"))
+        pose[:] = 7.0
+    torch.cuda.synchronize()
+    blocking_loop(ref, [fd.cloud.from_numpy(x, device="cpu") for x in xyz], T_bs, poses)
+    assert_bitwise_on_card(ref.state, staged.state)
+
+
+def test_staged_steady_state_never_synchronizes_on_card(cuda):
+    """After one synchronisation, fewer scans than the ring has buffers and
+    off the 64-scan check run under ``set_sync_debug_mode("error")``."""
+    from fastdem_tpu_torch.mapping import staging
+
+    xyz, poses = replay_scans(3 + staging.DEPTH, seed=25)
+    T_bs = np.eye(4, dtype=np.float32)
+    clouds = [fd.cloud.from_numpy(x, frame_id="lidar", device="cpu") for x in xyz]
+    mapper, _ = staging_pair(cuda)
+    for k in range(3):
+        assert mapper.integrate(clouds[k], T_bs, poses[k])
+    torch.cuda.synchronize()
+    assert mapper._scan_counter % 64 + staging.DEPTH - 1 < 64
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(3, 2 + staging.DEPTH):
+            assert mapper.integrate(clouds[k], T_bs, poses[k])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_staging_counters_on_card(cuda):
+    """``facade.staged`` counts every scan through the ring (a cloud on the
+    card too: its transforms); with the card held by a long kernel, the
+    scan that comes round to a buffer still in flight counts in
+    ``facade.stage_waits``, with a ``facade.stage_wait`` span inside
+    ``facade.prep``."""
+    from fastdem_tpu_torch.mapping import staging
+    from fastdem_tpu_torch.utils import tracing
+
+    n = staging.DEPTH + 1
+    xyz, poses = replay_scans(n + 3, seed=27)
+    T_bs = np.eye(4, dtype=np.float32)
+    clouds = [fd.cloud.from_numpy(x, frame_id="lidar", device="cpu") for x in xyz]
+    mapper, _ = staging_pair(cuda)
+    for k in range(2):
+        assert mapper.integrate(clouds[k], T_bs, poses[k])
+    torch.cuda.synchronize()
+    tracing.reset()
+    torch.cuda._sleep(400_000_000)
+    for k in range(2, 2 + n):
+        assert mapper.integrate(clouds[k], T_bs, poses[k])
+    got = tracing.counters()
+    assert (got.get("facade.staged"), got.get("facade.stage_waits")) == (n, 1)
+    torch.cuda.synchronize()
+    assert mapper.integrate(clouds[-1].to(cuda), T_bs, poses[-1])
+    got = tracing.counters()
+    assert (got.get("facade.staged"), got.get("facade.stage_waits")) == (n + 1, 1)
+    tab = tracing.table()
+    rows = np.flatnonzero(tab.name == tab.id_of("facade.stage_wait"))
+    assert len(rows) == 1
+    assert (tab.parent_name_ids(rows) == tab.id_of("facade.prep")).all()
+    assert (tab.durations_ms(rows) > 0).all()

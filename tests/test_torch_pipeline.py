@@ -8,6 +8,9 @@
 (c) A session started in JAX and carried into the port with
     ``state_from_numpy`` continues as it does in JAX.
 (d) The facade's probes, setters and the configurations that raise.
+(e) The CUDA facade's staging (``mapping/staging.py``) packed on the host
+    into a plain buffer: bit for bit what the device copy and ``pad_to``
+    give, and the map of a facade that stages equals the plain one's.
 
 Layers are compared at rtol 1e-5, atol 1e-6 (NaN = NaN) on at least 99.9%
 of cells: last-ulp atan2 / hypot differences between the libraries can
@@ -393,3 +396,94 @@ def test_transform_helpers_match_jax(rng):
     ref = jax.jit(tf_j.transform_points)(jnp.asarray(xyz), Tj)
     got = tf_t.transform_points(torch.tensor(xyz), Tt)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+class _HostRing:
+    """``staging.StagingRing`` on plain host memory: the same packing, one
+    buffer a scan, no device."""
+
+    def put(self, parts):
+        from fastdem_tpu_torch.mapping import staging
+
+        secs, nbytes = staging.plan(parts)
+        buf = torch.empty(nbytes, dtype=torch.uint8)
+        staging.pack(buf.numpy(), parts, secs)
+        return staging.unpack(buf, secs)
+
+
+def _bits(t):
+    t = t.contiguous()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+TRANSFORMS = {
+    "numpy f64": lambda T: T.astype(np.float64),
+    "numpy f32": lambda T: T.astype(np.float32),
+    "torch f64": lambda T: torch.tensor(T, dtype=torch.float64),
+}
+
+
+@pytest.mark.parametrize("n, capacity", [(4096, 4096), (3001, 3008)])
+@pytest.mark.parametrize("kind", list(TRANSFORMS))
+def test_staging_packs_as_pad_to(rng, n, capacity, kind):
+    """A host cloud packed for a CUDA facade (``FastDEM._stage`` on a host
+    ring) gives, bit for bit, ``pad_to(cloud, ladder_capacity(cap, base=1))``
+    with the channels the step reads, and ``torch.as_tensor(T, float32)``
+    for both transforms; a cloud at a power of two keeps its capacity."""
+    from fastdem_tpu_torch.cloud import pointcloud as pc
+    from fastdem_tpu_torch.mapping.pipeline import _host_f32
+
+    geom = ft.GridGeometry.from_length(6.0, 6.0, 0.2)
+    m = ft.FastDEM(geom, ft.Config(), has_intensity=True, has_color=True, device="cpu")
+    m._ring = _HostRing()
+    xyz = rng.normal(0.0, 2.0, (n, 3)).astype(np.float32)
+    xyz[5] = np.nan  # an invalid row keeps its 1e9 and its False
+    cloud = ft.cloud.from_numpy(
+        xyz, frame_id="lidar", device="cpu", capacity=capacity,
+        intensity=rng.uniform(0, 255, n).astype(np.float32),
+        color=rng.integers(0, 256, (n, 3), dtype=np.uint8),
+        ring=rng.integers(0, 16, n, dtype=np.int32),
+    )
+    T = np.eye(4) + rng.normal(0.0, 0.3, (4, 4))  # f64 entries that round
+    T_bs, T_wb = TRANSFORMS[kind](T), TRANSFORMS[kind](T.T)
+    cap = pc.ladder_capacity(cloud.capacity, base=1)
+    stepped, got_bs, got_wb = m._stage(cloud, cap, _host_f32(T_bs), T_wb)
+
+    ref = pc.pad_to(cloud, cap)
+    assert stepped.capacity == cap == 4096
+    for name, a, b in (("xyz", ref.xyz, stepped.xyz), ("mask", ref.mask, stepped.mask),
+                       ("intensity", ref.channels["intensity"], stepped.channels["intensity"]),
+                       ("color", ref.channels["color"], stepped.channels["color"])):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(_bits(a), _bits(b)), name
+    assert set(stepped.channels) == {"intensity", "color"}  # what the step reads
+    for T_in, T_got in ((T_bs, got_bs), (T_wb, got_wb)):
+        want = torch.as_tensor(T_in, dtype=torch.float32)
+        assert T_got.dtype == torch.float32 and T_got.shape == (4, 4)
+        assert torch.equal(_bits(want), _bits(T_got))
+
+
+def test_staging_facade_maps_as_the_plain_facade(rng):
+    """Scans of three sizes, with intensity, through a facade that stages
+    (on a host ring) map as the plain facade's, bit for bit, and its aux
+    is trimmed to each scan."""
+    geom = ft.GridGeometry.from_length(6.0, 6.0, 0.2)
+    cfg = ft.Config()
+    cfg.raycasting.enabled = True
+    plain = ft.FastDEM(geom, cfg, has_intensity=True, device="cpu")
+    staged = ft.FastDEM(geom, cfg, has_intensity=True, device="cpu")
+    staged._ring = _HostRing()
+    T_bs = np.eye(4)
+    T_bs[2, 3] = 0.8
+    for k, n in enumerate((2000, 1024, 1500)):
+        xyz = small_cloud(rng).xyz.numpy()[:n]
+        cloud = ft.cloud.from_numpy(xyz, frame_id="lidar", device="cpu",
+                                    intensity=rng.uniform(0, 1, n).astype(np.float32))
+        T_wb = np.eye(4)
+        T_wb[0, 3] = 0.15 * k
+        for m in (plain, staged):
+            assert m.integrate(cloud, T_bs, T_wb)
+        assert staged.last_aux.world_xyz.shape == (n, 3)
+    for k, v in plain.state.layers.items():
+        np.testing.assert_array_equal(staged.state.layers[k].numpy().view(np.int32),
+                                      v.numpy().view(np.int32), err_msg=k)
