@@ -1039,6 +1039,20 @@ class FastDEM:
     """Host-side facade: owns the map state on ``device`` and the step.
 
     Not thread-safe, like the reference.
+
+    ``mesh`` (a ``parallel.sharding.BlockMesh``, e.g. ``make_global_mesh()``
+    after ``parallel.distributed.init_distributed``): the map is held as
+    the mesh's blocks, this process's on ``device`` (one of the mesh's
+    devices here), and every scan runs ``build_sharded_integrate``'s step,
+    compiled and donating its state (the blocks are the graphs' slots,
+    updated in place; ``state`` hands out clones). Every rank is fed the
+    same scans. On a mesh of several processes each ``integrate_sequence``
+    call ends with one collective (``parallel.distributed.CallSync``), and
+    the next call checks that every rank held the same scans. The aux has
+    no per-cell observations (``aux.obs`` None), so ``on_rasterized`` is
+    not served, and the node's ``run_postprocess`` raises
+    NotImplementedError: a sharded map's chain is
+    ``parallel.sharding.sharded_postprocess``.
     """
 
     def __init__(
@@ -1052,8 +1066,12 @@ class FastDEM:
         auto_bucket: bool = True,
         *,
         device="cuda",
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and self.device not in mesh.local_devices():
+            raise ValueError(f"{self.device} is not a device of this process's blocks")
         self.geom = geom
         self.cfg = cfg or Config()
         self.frame_id = frame_id
@@ -1065,6 +1083,7 @@ class FastDEM:
         self.state = create_map_state(
             geom, self.cfg, position, has_intensity, has_color, device=self.device
         )
+        self._resets = 0
         # Base->sensor translation allowance baked into the update-window
         # and polar-field bounds; widened (with a step rebuild) when a
         # larger extrinsic shows up.
@@ -1077,13 +1096,45 @@ class FastDEM:
         # A CUDA facade's scan inputs go through pinned buffers (_stage).
         self._ring = staging.StagingRing(self.device) if self.device.type == "cuda" else None
         self._step = self._build_step()
+        self._sync = None
+        if mesh is not None:
+            from fastdem_tpu_torch.parallel.distributed import CallSync
+
+            self._sync = CallSync(mesh.rank, mesh.world, self.device)
         self.calibration = None  # provider with get_extrinsic(frame_id)
         self.odometry = None  # provider with get_pose_at(timestamp_ns)
         self.on_preprocessed = None
         self.on_rasterized = None
         self.last_aux: Optional[IntegrateAux] = None
 
+    @property
+    def state(self):
+        """The map: a ``GridMapState``, or with a mesh a ``ShardedState`` of
+        this process's blocks, cloned (the step updates its own in place)."""
+        if self.mesh is None:
+            return self._state
+        from fastdem_tpu_torch.parallel.sharding import clone_state
+
+        return clone_state(self._state)
+
+    @state.setter
+    def state(self, value) -> None:
+        if self.mesh is not None:
+            from fastdem_tpu_torch.parallel.sharding import ShardedState, clone_state, shard_state
+
+            value = (clone_state(value) if isinstance(value, ShardedState)
+                     else shard_state(value, self.mesh))
+        self._state = value
+
     def _build_step(self):
+        if self.mesh is not None:
+            from fastdem_tpu_torch.parallel.sharding import build_sharded_integrate
+
+            step, _ = build_sharded_integrate(
+                self.geom, self.cfg, self.mesh, window_margin=self._window_margin,
+                jit=True, donate=True,
+            )
+            return step
         # Captured per signature like the reference's jitted step. Without
         # donation, as in the reference's facade: ``state`` is public, and
         # a caller or a driver thread may hold the previous state, which a
@@ -1098,11 +1149,20 @@ class FastDEM:
     # -- fluent setters: each rebuilds the step ------------------------------
     def _rebuild(self):
         # The new step captures anew; the old one's graphs go now.
-        if isinstance(self._step, graphs.CompiledStep):
-            self._step.clear()
+        for step in getattr(self._step, "per_device", {None: self._step}).values():
+            if isinstance(step, graphs.CompiledStep):
+                step.clear()
         self._step = self._build_step()
         # Estimator / raycast layer sets may change; keep existing layers.
         fills = initial_layer_fills(self.cfg, self.has_intensity, self.has_color)
+        if self.mesh is not None:
+            shape = self._state.layout.block_shape
+            for slot, blk in self._state.blocks.items():
+                for name, fill in fills.items():
+                    if name not in blk:
+                        blk[name] = torch.full(shape, fill, dtype=torch.float32,
+                                               device=self.mesh.device(slot))
+            return
         lyr = dict(self.state.layers)
         for name, fill in fills.items():
             if name not in lyr:
@@ -1155,7 +1215,13 @@ class FastDEM:
         return self.calibration is not None and self.odometry is not None
 
     def reset(self) -> None:
-        """Clear every layer to NaN."""
+        """Clear every layer to NaN (a mesh's blocks in place)."""
+        self._resets += 1
+        if self.mesh is not None:
+            for blk in self._state.blocks.values():
+                for v in blk.values():
+                    v.fill_(np.nan)
+            return
         self.state = gridmap.clear_all(self.state)
 
     # -- integration ---------------------------------------------------------
@@ -1192,8 +1258,8 @@ class FastDEM:
             if prepared is None:
                 return False
             cloud, stepped, T_bs, T_wb, intensity, color_packed = prepared
-            self.state, aux = self._step(
-                self.state, stepped.xyz, stepped.mask, T_bs, T_wb, intensity, color_packed
+            self._state, aux = self._step(
+                self._state, stepped.xyz, stepped.mask, T_bs, T_wb, intensity, color_packed
             )
             sp = tracing.begin(_CALLBACKS)
             self._finish(cloud, stepped, aux)
@@ -1249,7 +1315,7 @@ class FastDEM:
         # power of two, the rasterizer's argmin index width, so the map is
         # the unpadded scan's bit for bit.
         cap = cloud.capacity
-        if isinstance(self._step, graphs.CompiledStep):
+        if isinstance(self._step, graphs.CompiledStep) or self.mesh is not None:
             cap = pc.ladder_capacity(cap, base=1)
 
         T_bs_host = _host_f32(T_base_sensor)
@@ -1369,9 +1435,16 @@ class FastDEM:
         graph of its capacity rounded up to a power of two
         (``build_integrate(jit=True)``, see ``integrate``), so the value is
         only checked. Returns the number of scans integrated.
+
+        On a mesh of several processes every rank makes the same calls with
+        the same scans. The call first checks the previous call's
+        collective (``mesh_check``) and ends by enqueuing its own, which
+        carries the scans this rank has integrated and its resets.
         """
         if batch < 1:
             raise ValueError("batch must be >= 1")
+        if self._sync is not None:
+            self._sync.begin()
         n = len(clouds)
         tbs = twb = [None] * n
         if T_base_sensor is not None and T_world_base is not None:
@@ -1382,10 +1455,25 @@ class FastDEM:
             tbs = [tbs] * n if tbs.shape == (4, 4) else tbs.reshape(-1, 4, 4)
             if len(tbs) != n:
                 raise ValueError("T_base_sensor must be one 4x4 or one per cloud")
-        return sum(self.integrate(c, b, w) for c, b, w in zip(clouds, tbs, twb))
+        done = sum(self.integrate(c, b, w) for c, b, w in zip(clouds, tbs, twb))
+        if self._sync is not None:
+            self._sync.end(self._scan_counter, self._resets)
+        return done
+
+    def mesh_check(self):
+        """A mesh facade: the agreement of the last ``integrate_sequence``
+        call (``parallel.distributed.Agreement``: the scans every rank had
+        integrated, the resets), its collective waited for and checked
+        first where it has not been; RuntimeError, on every rank, where the
+        ranks' scans differ."""
+        if self._sync is None:
+            raise ValueError("mesh_check needs a facade built with mesh=")
+        return self._sync.check()
 
     def rasterized_cloud(self, aux: IntegrateAux):
         """One point per touched cell at (cell center, min_z)."""
+        if aux.obs is None:
+            raise NotImplementedError("a mesh facade's aux has no per-cell observations")
         x, y = self.geom.cell_centers(self.state.position)
         return x, y, aux.obs.min_z, aux.obs.touched
 

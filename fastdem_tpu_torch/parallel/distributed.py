@@ -1,16 +1,21 @@
-"""Multi-process runtime: the ``torch.distributed`` bootstrap, the sharded
-npz checkpoint and the scaling report (port of
+"""Multi-process runtime: the ``torch.distributed`` bootstrap, the check
+that keeps a mesh facade's ranks at the same scan, the sharded npz
+checkpoint and the scaling report (port of
 ``fastdem_tpu/parallel/distributed.py``).
 
 One process per card (or several on one card), each given the
 coordinator's address, the process count and its rank; a block mesh over
 every rank's device (``make_global_mesh``); every rank fed the same scans.
-The GLOBAL step runs no collective, so the process group carries only the
-LOCAL move's strips, post-processing halos and checkpoints. Its backend is
-gloo, which moves host tensors: blocks on a card are staged through pinned
-host memory. Gloo also serves several ranks on one card, which NCCL
-refuses; ``backend="nccl"`` is accepted for one card per rank, and is
-untried here.
+The GLOBAL step runs no collective. A mesh facade
+(``mapping.pipeline.FastDEM(mesh=...)``) runs one per
+``integrate_sequence`` call (``CallSync``); the LOCAL move's strips,
+post-processing halos, checkpoints and the assembly of a map on one rank
+(``sharding.gather_state``) go through the host. The backend is gloo
+(host tensors; blocks on a card are staged through pinned host memory),
+which also serves several ranks on one card, or
+``"cpu:gloo,cuda:nccl"`` for one card a rank: gloo for the host
+exchanges and NCCL for the per-call collective on the card, run so on four
+H100s of one host (``port_bench``'s ``mesh_replay`` loop).
 
 Usage (one command per process):
   python -m fastdem_tpu_torch.parallel.distributed --coordinator host0:1234 \
@@ -19,21 +24,28 @@ Usage (one command per process):
 Library use:
   init_distributed("host0:1234", num_processes, process_id)
   mesh = make_global_mesh()
-  step, shard = build_sharded_integrate(geom, cfg, mesh)
+  mapper = FastDEM(geom, cfg, mesh=mesh, device=mesh.local_devices()[0])
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import datetime
 import io as _io
 import json
 import os
 import time
 import zipfile
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from fastdem_tpu_torch.utils import tracing
+
+_SYNC = tracing.name_id("mesh.sync")
+_SYNC_DEVICE = tracing.name_id("mesh.sync.device")
 
 
 def init_distributed(
@@ -41,21 +53,27 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     backend: str = "gloo",
+    timeout_s: Optional[float] = None,
 ) -> None:
     """Join the process group at ``tcp://coordinator_address`` (a no-op
     for one process). Nothing on the machine names a cluster: the address,
-    the count and the rank are the caller's."""
+    the count and the rank are the caller's. ``backend`` is gloo or
+    ``"cpu:gloo,cuda:nccl"`` (one card a rank: call ``torch.cuda.set_device``
+    first); ``timeout_s`` bounds every wait of the group (torch's default
+    without it)."""
     import torch.distributed as dist
 
     if num_processes is None or num_processes <= 1:
         return
     if coordinator_address is None or process_id is None:
         raise ValueError("several processes need a coordinator address and a process id")
+    kw = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
     dist.init_process_group(
         backend,
         init_method=f"tcp://{coordinator_address}",
         world_size=int(num_processes),
         rank=int(process_id),
+        **kw,
     )
 
 
@@ -78,6 +96,101 @@ def make_global_mesh(
     from fastdem_tpu_torch.parallel.sharding import make_mesh
 
     return make_mesh(n=n, shape=shape, devices=devices)
+
+
+class Agreement(NamedTuple):
+    """What every rank of a mesh held at the end of a checked call."""
+
+    scans: int  # scans integrated since the facade was made
+    resets: int
+
+
+class CallSync:
+    """The check that every rank of a mesh facade holds the same scans at
+    the end of each ``integrate_sequence`` call.
+
+    At a call's end each rank writes its row (scans integrated so far,
+    resets) into a [world, 2] int64 table of zeros, and one all-reduce
+    sums the tables: NCCL on the rank's card, enqueued on the current
+    stream behind the call's steps, with the sum copied to pinned host
+    memory behind an event; gloo, which waits, on the CPU. The host does
+    not wait on the card's: ``check``, which the next call makes when it
+    starts, does, and raises RuntimeError on every rank, naming the ranks
+    whose row differs from the most common one.
+    With one process there is no collective and each call is agreed as it
+    ends.
+
+    Spans: ``mesh.sync`` (the host's enqueue) and, on a card,
+    ``mesh.sync.device``, between two events on the stream, one recorded
+    just before the all-reduce and one just after it: the collective
+    alone, which waits there for the slowest rank's card to reach it.
+    Counters, kept here: ``mesh.calls`` and ``mesh.collectives``."""
+
+    def __init__(self, rank: int, world: int, device: torch.device):
+        self.rank, self.world, self.device = rank, world, device
+        self.calls = 0
+        self.collectives = 0
+        self.agreed = Agreement(0, 0)
+        self._pending = False
+        self._cuda = device.type == "cuda"
+        if world > 1:
+            self._rows = torch.zeros((world, 2), dtype=torch.int64, pin_memory=self._cuda)
+            self._rows_np = self._rows.numpy()
+            self._sum = torch.zeros((world, 2), dtype=torch.int64, pin_memory=self._cuda)
+            if self._cuda:
+                self._dev = torch.zeros((world, 2), dtype=torch.int64, device=device)
+                self._event = torch.cuda.Event()
+        tracing.register("mesh.calls", self, "calls")
+        tracing.register("mesh.collectives", self, "collectives")
+
+    def begin(self) -> None:
+        """A call starts: the previous call's collective is checked."""
+        self.check()
+        self.calls += 1
+
+    def end(self, scans: int, resets: int) -> None:
+        """A call has enqueued its steps: enqueue the collective."""
+        if self.world == 1:
+            self.agreed = Agreement(scans, resets)
+            return
+        import torch.distributed as dist
+
+        sp = tracing.begin(_SYNC)
+        self._rows_np[:] = 0
+        self._rows_np[self.rank] = (scans, resets)
+        if self._cuda:
+            self._dev.copy_(self._rows, non_blocking=True)
+            since = tracing.device_start(self.device)
+            dist.all_reduce(self._dev)
+            tracing.device_span(_SYNC_DEVICE, self.device, since)
+            self._sum.copy_(self._dev, non_blocking=True)
+            self._event.record()
+        else:
+            self._sum.copy_(self._rows)
+            dist.all_reduce(self._sum)
+        self.collectives += 1
+        self._pending = True
+        tracing.end(sp)
+
+    def check(self) -> Agreement:
+        """The last call's agreement, its collective waited for and checked
+        first if it has not been."""
+        if not self._pending:
+            return self.agreed
+        if self._cuda:
+            self._event.synchronize()
+        self._pending = False
+        rows = [tuple(int(v) for v in r) for r in self._sum.numpy()]
+        common, _ = collections.Counter(rows).most_common(1)[0]
+        differ = [r for r, row in enumerate(rows) if row != common]
+        if differ:
+            held = "; ".join(f"rank {r}: {row[0]} scans, {row[1]} resets"
+                             for r, row in enumerate(rows))
+            raise RuntimeError(
+                f"the mesh's ranks hold different scans at the end of call {self.calls}: "
+                f"{held}; ranks {differ} differ")
+        self.agreed = Agreement(*common)
+        return self.agreed
 
 
 def _npy_header(rows: int, cols: int) -> bytes:

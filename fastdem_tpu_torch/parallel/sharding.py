@@ -50,9 +50,10 @@ from fastdem_tpu_torch.grid import gridmap
 from fastdem_tpu_torch.grid.geometry import GridGeometry
 from fastdem_tpu_torch.grid.gridmap import GridMapState
 from fastdem_tpu_torch.numerics import recip_f32
-from fastdem_tpu_torch.utils import graphs
+from fastdem_tpu_torch.utils import graphs, tracing
 
 MAP_AXES = ("mx", "my")
+_GATHER = tracing.name_id("mesh.gather")
 
 Slot = Tuple[int, int]
 Rect = Tuple[int, int, int, int]  # r0, r1, c0, c1 (half-open, global cells)
@@ -253,21 +254,59 @@ def shard_state(state, mesh: BlockMesh) -> ShardedState:
                         position=position)
 
 
-def gather_state(sharded: ShardedState, device=None) -> GridMapState:
-    """The whole map on ``device`` (default: the mesh's first device), for
-    tests and small maps, in one process. Several processes write a map
+def clone_state(sharded: ShardedState) -> ShardedState:
+    """A copy of ``sharded`` whose tensors are its own."""
+    return ShardedState(sharded.mesh, sharded.shape,
+                        {slot: {k: v.clone() for k, v in blk.items()}
+                         for slot, blk in sharded.blocks.items()},
+                        sharded.position.clone())
+
+
+def gather_state(sharded: ShardedState, device=None) -> Optional[GridMapState]:
+    """The whole map on ``device`` (default: the mesh's first device of
+    this rank), for tests, checks and small maps.
+
+    In one process it is returned. Across processes every rank calls this
+    and rank 0 returns the map (None on the others): each block it
+    does not own comes to it through the host (gloo), all its layers in one
+    message. The map is assembled whole there, so large maps are written
     with ``distributed.save_sharded_npz`` instead, which never assembles a
-    whole layer."""
+    layer. Span ``mesh.gather``."""
     mesh = sharded.mesh
-    if mesh.world > 1:
-        raise ValueError("gather_state runs in one process; use save_sharded_npz")
-    dev = resolve_device(device) if device is not None else mesh.local_devices()[0]
+    sp = tracing.begin(_GATHER)
+    try:
+        if mesh.world == 1:
+            return _assembled(sharded, sharded.blocks, device)
+        import torch.distributed as dist
+
+        names = sorted(sharded.layer_names)
+        got: Dict[Slot, Dict[str, torch.Tensor]] = {}
+        layout = sharded.layout
+        for slot in mesh.slots():
+            owner = mesh.owner(slot)
+            if owner == mesh.rank == 0:
+                got[slot] = sharded.blocks[slot]
+            elif owner == mesh.rank:
+                data = torch.stack([sharded.blocks[slot][k] for k in names])
+                dist.send(_staged(data), 0)
+            elif mesh.rank == 0:
+                r0, r1, c0, c1 = layout.rect(slot)
+                buf = torch.empty((len(names), r1 - r0, c1 - c0), dtype=torch.float32)
+                dist.recv(buf, owner)
+                got[slot] = dict(zip(names, buf))
+        return _assembled(sharded, got, device) if mesh.rank == 0 else None
+    finally:
+        tracing.end(sp)
+
+
+def _assembled(sharded: ShardedState, blocks, device) -> GridMapState:
+    dev = resolve_device(device) if device is not None else sharded.mesh.local_devices()[0]
     layout = sharded.layout
     full = {
         k: torch.empty(sharded.shape, dtype=torch.float32, device=dev)
         for k in sharded.layer_names
     }
-    for slot, blk in sharded.blocks.items():
+    for slot, blk in blocks.items():
         r0, r1, c0, c1 = layout.rect(slot)
         for k, v in blk.items():
             full[k][r0:r1, c0:c1] = v.to(dev)

@@ -431,7 +431,13 @@ class MappingDriver:
         chain is enqueued under the lock, where its capture can happen (see
         the module docstring); its outputs are fresh tensors, read back
         after the lock is released. On the CPU nothing is captured, and the
-        chain runs outside the lock."""
+        chain runs outside the lock. A mapper on a block mesh raises
+        NotImplementedError: its chain is ``parallel.sharding.
+        sharded_postprocess``, which every rank runs (the GLOBAL preset a
+        mesh serves has post-processing off)."""
+        if getattr(self.mapper, "mesh", None) is not None:
+            raise NotImplementedError(
+                "run_postprocess on a block mesh: use parallel.sharding.sharded_postprocess")
         fn = self.postprocess_fn(uf, inpaint, features)
         on_card = self.mapper.device.type == "cuda"
         with self._held() if on_card else contextlib.nullcontext():

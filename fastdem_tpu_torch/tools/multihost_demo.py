@@ -4,9 +4,10 @@ configuration 5) on the port.
 Run one instance per process. The GLOBAL map's layers are split into a
 mesh of blocks, each process owning a contiguous run of them; every
 process is fed the same scan stream (scans are replicated: tiny next to
-the map), integrates it into its own blocks with no exchange, and rank 0
-writes the assembled npz (``save_sharded_npz``: every rank takes part, no
-layer is assembled whole).
+the map) through the facade (``FastDEM(mesh=...)``), which integrates it
+into its own blocks with no exchange, and rank 0 writes the assembled npz
+(``save_sharded_npz``: every rank takes part, no layer is assembled
+whole).
 
 The stream: ``--scans`` scans of ``--points`` points in rings out to 0.45 x
 the map size (the reference tool's), or the scans of ``--scans-npz`` (an
@@ -16,8 +17,11 @@ x and -0.3 m along y per synthetic scan (the blocks exchange the strips of
 each move); ``--pp-out`` also writes the post-processing chain
 run over the sharded map (halos exchanged between the processes);
 ``--ckpt`` writes a sharded checkpoint (``io/sharded_ckpt.py``).
-The step runs compiled, as CUDA graphs on a card (``jit=True``: the whole
-scan in GLOBAL mode, the scan after the strip exchange in LOCAL mode).
+The facade's step runs compiled, as CUDA graphs on a card (the whole scan
+in GLOBAL mode, the scan after the strip exchange in LOCAL mode).
+``--batched 1`` integrates the whole stream instead in one call of the
+scan-batched replay (``sharding.build_sharded_integrate_sequence``, each
+device's scans one CUDA graph in GLOBAL mode) over the facade's blocks.
 
 Two processes on one machine (gloo; a free port for the coordinator):
   python -m fastdem_tpu_torch.tools.multihost_demo --pid 0 --nproc 2 \\
@@ -80,7 +84,8 @@ def main(argv=None):
                          "(halos exchanged between processes; rank 0 writes)")
     ap.add_argument("--batched", type=int, default=0,
                     help="integrate all scans in one sharded replay call "
-                         "(build_sharded_integrate_sequence) instead of per scan")
+                         "(build_sharded_integrate_sequence) over the facade's blocks "
+                         "instead of one facade integrate call per scan")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.nproc > 1 and not args.coordinator:
@@ -91,9 +96,10 @@ def main(argv=None):
     # Several workers share one host: keep each one's thread pool small.
     torch.set_num_threads(2)
 
+    from fastdem_tpu_torch.cloud import pointcloud as pc
     from fastdem_tpu_torch.config import Config, MappingMode
     from fastdem_tpu_torch.grid.geometry import GridGeometry
-    from fastdem_tpu_torch.mapping.pipeline import create_map_state
+    from fastdem_tpu_torch.mapping.pipeline import FastDEM
     from fastdem_tpu_torch.parallel import sharding as sh
     from fastdem_tpu_torch.parallel.distributed import (
         init_distributed,
@@ -122,20 +128,18 @@ def main(argv=None):
             LOCAL_STEP if args.mode == "local" else (0.0, 0.0),
         )
     dev = mesh.local_devices()[0]
+    mapper = FastDEM(geom, cfg, device=dev, mesh=mesh)
     K, n = xyz.shape[:2]
-    xyz_t = torch.tensor(xyz, device=dev)
-    mask_t = torch.ones((K, n), dtype=torch.bool, device=dev)
-    tbs_t = torch.tensor(T_bs, device=dev)
-    twb_t = torch.tensor(T_wb, device=dev)
-
     if args.batched:
-        run, shard = sh.build_sharded_integrate_sequence(geom, cfg, mesh)
-        state = run(shard(create_map_state(geom, cfg, device=dev)), xyz_t, mask_t, tbs_t, twb_t)
+        run, _ = sh.build_sharded_integrate_sequence(geom, cfg, mesh)
+        mapper.state = run(mapper.state, torch.tensor(xyz, device=dev),
+                           torch.ones((K, n), dtype=torch.bool, device=dev),
+                           torch.tensor(T_bs, device=dev), torch.tensor(T_wb, device=dev))
     else:
-        run, shard = sh.build_sharded_integrate(geom, cfg, mesh)
-        state = shard(create_map_state(geom, cfg, device=dev))
-        for k in range(K):
-            state, _ = run(state, xyz_t[k], mask_t[k], tbs_t, twb_t[k])
+        run = mapper._step
+        for x, T in zip(xyz, T_wb):
+            mapper.integrate(pc.from_numpy(x, frame_id="lidar", device="cpu"), T_bs, T)
+    state = mapper.state
     finite = sum(int(torch.isfinite(b["elevation"]).sum()) for b in state.blocks.values())
     print(f"[mh] proc {mesh.rank}: {run.formulation} ({run.compiled}), {K} scans, finite "
           f"cells (own blocks) = {finite}", flush=True)

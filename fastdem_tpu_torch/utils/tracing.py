@@ -24,7 +24,8 @@ it with the queued scan to the intake thread (``set_scan``), and
 
 Spans of the host (``begin`` / ``end``, or ``record`` for one whose times
 are known afterwards) and of the device: ``device_span`` opens a span when
-a step's work has been enqueued and records a CUDA event behind it, drawn
+a step's work has been enqueued (or, after ``device_start``, at an event
+recorded before that work) and records a CUDA event behind it, drawn
 from a pool of ``EVENTS`` per device; the span's end is the event's
 completion on the host's clock, worked out when the event's slot is used
 again or when the ring is read (``table``, ``export_chrome``), never by
@@ -330,6 +331,10 @@ class _DeviceClock:
         self.events = [self._made_event() for _ in range(EVENTS)]
         self.seqs = [-1] * EVENTS
         self.anchors: List = [None] * EVENTS
+        # A slot's start event, for a span timed between two events
+        # (``device_start``); made at the slot's first such use.
+        self.starts: List = [None] * EVENTS
+        self.started = [False] * EVENTS
         self.slots = itertools.count()
         self.anchor = self._try_anchor()
         if self.anchor is None:  # the device is busy: wait for it once
@@ -382,12 +387,29 @@ class _DeviceClock:
             count("step.device_unresolved")
             return
         j = (seq & _MASK) << 3
-        if _Q[j] == seq:
-            _Q[j + 4] = max(a_host + int(round(ms * 1e6)), _Q[j + 3])
+        if _Q[j] != seq:
+            return
+        if self.started[k]:
+            _Q[j + 3] = a_host + int(round(a_ev.elapsed_time(self.starts[k]) * 1e6))
+        _Q[j + 4] = max(a_host + int(round(ms * 1e6)), _Q[j + 3])
 
-    def after_enqueue(self, seq: int) -> None:
+    def _slot(self, started: bool) -> int:
         k = next(self.slots) % EVENTS
         self._resolve(k, wait=False)
+        self.started[k] = started
+        return k
+
+    def before_enqueue(self) -> int:
+        """A slot whose start event is recorded now on the current stream."""
+        k = self._slot(True)
+        if self.starts[k] is None:
+            self.starts[k] = self._made_event()
+        self.starts[k].record(self._current_stream())
+        return k
+
+    def after_enqueue(self, seq: int, k: int = -1) -> None:
+        if k < 0:
+            k = self._slot(False)
         self.events[k].record(self._current_stream())
         self.seqs[k] = seq
         self.anchors[k] = self.anchor
@@ -402,18 +424,34 @@ _clocks: Dict[int, _DeviceClock] = {}
 _clocks_lock = threading.Lock()
 
 
-def device_span(name: int, device) -> None:
-    """On a CUDA ``device``: a span from now, when this thread has enqueued
-    its work, to that work's completion on the device."""
-    if not ON:
-        return
+def _clock(device) -> _DeviceClock:
     clock = _clocks.get(device.index)
     if clock is None:
         with _clocks_lock:
             clock = _clocks.get(device.index)
             if clock is None:
                 clock = _clocks[device.index] = _DeviceClock(device)
-    clock.after_enqueue(open_span(name, thread=0))
+    return clock
+
+
+def device_start(device) -> int:
+    """On a CUDA ``device``: an event recorded now on the current stream,
+    where a ``device_span(..., since=)`` that this thread opens next starts;
+    its handle, -1 when spans are off."""
+    if not ON:
+        return -1
+    return _clock(device).before_enqueue()
+
+
+def device_span(name: int, device, since: int = -1) -> None:
+    """On a CUDA ``device``: a span from now, when this thread has enqueued
+    its work, to that work's completion on the device; given ``since``
+    (``device_start``'s handle), from that event's completion instead, so
+    that the span holds only the work enqueued between the two, and the
+    waits it makes on the device."""
+    if not ON:
+        return
+    _clock(device).after_enqueue(open_span(name, thread=0), since)
 
 
 _ALLOCS = name_id("step.device_allocs")

@@ -1209,6 +1209,37 @@ def test_spans_share_the_device_trace_clock_on_card(cuda, tmp_path):
     assert (tab.end[dev] >= tab.start[dev]).all(), tab.durations_ms(dev)
 
 
+def test_device_span_since_holds_only_the_work_between(cuda):
+    """A device span from ``device_start``'s event holds the work enqueued
+    between the two events alone; one opened at the host's enqueue holds
+    the device work queued ahead of it too (two ~30 ms sleeps)."""
+    from fastdem_tpu_torch.device import resolve_device
+    from fastdem_tpu_torch.utils import tracing
+
+    cuda = resolve_device(cuda)  # with its index, as the program's callers pass it
+    x = torch.zeros(16, device=cuda)
+    tracing.device_span(tracing.name_id("test.warm"), cuda)  # the device's clock
+    torch.cuda.synchronize()
+    tracing.reset()
+    between, queued = tracing.name_id("test.between"), tracing.name_id("test.queued")
+    torch.cuda._sleep(50_000_000)
+    since = tracing.device_start(cuda)
+    x.add_(1.0)
+    tracing.device_span(between, cuda, since)
+    torch.cuda._sleep(50_000_000)
+    x.add_(1.0)
+    tracing.device_span(queued, cuda)
+    torch.cuda.synchronize()
+    tab = tracing.table()
+    (b,), (q,) = (np.flatnonzero(tab.name == tab.id_of(n))
+                  for n in ("test.between", "test.queued"))
+    b_ms, q_ms = tab.durations_ms(np.array([b, q]))
+    assert 0.0 <= b_ms < 5.0 and q_ms > 25.0, (b_ms, q_ms)
+    # The first span starts on the device, after the first sleep; the
+    # second at the host's enqueue, before it.
+    assert tab.start[b] > tab.start[q] + 15_000_000
+
+
 def blocking_loop(mapper, clouds, T_bs, poses):
     """The facade's input path before its staging ring, written out: each
     cloud copied to the card from pageable memory, padded there to the
