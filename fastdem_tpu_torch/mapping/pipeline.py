@@ -1040,6 +1040,15 @@ class FastDEM:
 
     Not thread-safe, like the reference.
 
+    The step is compiled and donates its state, as the reference's jitted
+    step would with ``donate_argnums``: on the card the map lives in the
+    step's CUDA graph slots and each scan updates it there, with no copy of
+    the map into the graph or out of it. ``state`` hands out a copy, so a
+    value a caller holds never changes under later scans; a value set to
+    ``state`` is kept as given and copied into the slots by the next scan;
+    ``reset()`` clears the slots in place. ``live_state()`` is the map
+    itself, for a reader that cannot race a scan (the node's timers).
+
     ``mesh`` (a ``parallel.sharding.BlockMesh``, e.g. ``make_global_mesh()``
     after ``parallel.distributed.init_distributed``): the map is held as
     the mesh's blocks, this process's on ``device`` (one of the mesh's
@@ -1112,10 +1121,21 @@ class FastDEM:
         """The map: a ``GridMapState``, or with a mesh a ``ShardedState`` of
         this process's blocks, cloned (the step updates its own in place)."""
         if self.mesh is None:
-            return self._state
+            st = self._state
+            return GridMapState(layers={k: v.clone() for k, v in st.layers.items()},
+                                position=st.position.clone())
         from fastdem_tpu_torch.parallel.sharding import clone_state
 
         return clone_state(self._state)
+
+    def live_state(self):
+        """The map itself, not a copy: on the card, the tensors the next
+        scan updates in place. For a reader that holds the lock every
+        ``integrate`` of this facade runs under (``runtime.MappingDriver``'s)
+        and enqueues its device reads on the current stream, or finishes
+        them, before it lets the lock go. Every other reader takes
+        ``state``."""
+        return self._state
 
     @state.setter
     def state(self, value) -> None:
@@ -1135,14 +1155,13 @@ class FastDEM:
                 jit=True, donate=True,
             )
             return step
-        # Captured per signature like the reference's jitted step. Without
-        # donation, as in the reference's facade: ``state`` is public, and
-        # a caller or a driver thread may hold the previous state, which a
-        # donated step would update in place; so the graph's slots never
-        # leave the step (each call copies the state in and clones it out).
+        # Captured per signature like the reference's jitted step, and
+        # donating: each call passes back the slots the last one returned,
+        # so the map is neither copied in nor cloned out (``state`` hands
+        # out copies).
         return build_integrate(
             self.geom, self.cfg, self.has_intensity, self.has_color,
-            window_margin=self._window_margin, jit=True, donate=False,
+            window_margin=self._window_margin, jit=True, donate=True,
             device=self.device,
         )
 
@@ -1163,13 +1182,13 @@ class FastDEM:
                         blk[name] = torch.full(shape, fill, dtype=torch.float32,
                                                device=self.mesh.device(slot))
             return
-        lyr = dict(self.state.layers)
+        lyr = dict(self._state.layers)
         for name, fill in fills.items():
             if name not in lyr:
                 lyr[name] = torch.full(
                     self.geom.shape, fill, dtype=torch.float32, device=self.device
                 )
-        self.state = GridMapState(layers=lyr, position=self.state.position)
+        self._state = GridMapState(layers=lyr, position=self._state.position)
 
     def set_mapping_mode(self, mode: MappingMode) -> "FastDEM":
         self.cfg.mapping.mode = mode
@@ -1215,14 +1234,20 @@ class FastDEM:
         return self.calibration is not None and self.odometry is not None
 
     def reset(self) -> None:
-        """Clear every layer to NaN (a mesh's blocks in place)."""
+        """Clear every layer to NaN: in place where the map is the step's
+        own (a mesh's blocks, the graph's slots), else into new tensors, so
+        a value set to ``state`` is never written."""
         self._resets += 1
         if self.mesh is not None:
             for blk in self._state.blocks.values():
                 for v in blk.values():
                     v.fill_(np.nan)
             return
-        self.state = gridmap.clear_all(self.state)
+        if isinstance(self._step, graphs.CompiledStep) and self._step.holds(self._state):
+            for v in self._state.layers.values():
+                v.fill_(np.nan)
+            return
+        self._state = gridmap.clear_all(self._state)
 
     # -- integration ---------------------------------------------------------
     def integrate(self, cloud, T_base_sensor=None, T_world_base=None) -> bool:
@@ -1474,7 +1499,7 @@ class FastDEM:
         """One point per touched cell at (cell center, min_z)."""
         if aux.obs is None:
             raise NotImplementedError("a mesh facade's aux has no per-cell observations")
-        x, y = self.geom.cell_centers(self.state.position)
+        x, y = self.geom.cell_centers(self._state.position)
         return x, y, aux.obs.min_z, aux.obs.touched
 
 

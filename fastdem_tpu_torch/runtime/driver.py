@@ -7,8 +7,9 @@ The reference node's behaviour:
     (topics become callbacks and npz / HTML artifacts);
   * periodic post-processing on a SNAPSHOT of {elevation, upper, lower}.
     The reference package's arrays are immutable, so its snapshot is a dict
-    subset; torch tensors are not, so this one clones the three layers
-    under the lock, and a later in-place map update cannot tear it;
+    subset; torch tensors are not, and the facade's step updates its map in
+    place, so this one clones the three layers under the lock, and a later
+    scan cannot tear it;
   * trigger services -> methods: reset / run_postprocess / run_inpainting /
     run_uncertainty_fusion / run_feature_extraction;
   * a startup banner.
@@ -16,7 +17,10 @@ The reference node's behaviour:
 Threading is the reference's three lanes: the caller's scan thread (or the
 async intake worker), a visualization timer and a post-processing timer,
 serialized around the FastDEM facade with an RLock (the facade is not
-thread-safe). All device work runs on the current stream. On a CUDA
+thread-safe). The timers read the map itself (``FastDEM.live_state``),
+never a copy of it, and finish their reads before they release the lock:
+a host copy (``interop.to_host``) or clones enqueued on the stream the
+next scan runs on. All device work runs on the current stream. On a CUDA
 device the constructor builds and loads the kernels, so no intake or timer
 thread ever runs nvcc.
 
@@ -399,7 +403,7 @@ class MappingDriver:
         lock: its tensors are clones, which later map updates cannot
         touch."""
         with self._lock:
-            state = self.mapper.state
+            state = self.mapper.live_state()
             return GridMapState(
                 layers={k: state.layers[k].clone() for k in SNAPSHOT_LAYERS
                         if k in state.layers},
@@ -477,7 +481,7 @@ class MappingDriver:
         # the npz artifact is written), the position and the last scan's
         # surviving points.
         with self._held():
-            state = self.mapper.state
+            state = self.mapper.live_state()
             names = [k for k in state.layers
                      if self.artifact_dir or not gm.is_internal(k)]
             arrays = {("layer", k): state.layers[k] for k in names}
@@ -537,7 +541,7 @@ class MappingDriver:
         if self._scan_count == 0:
             return
         with self._held():
-            center = host_state(self.mapper.state, [])[1]
+            center = host_state(self.mapper.live_state(), [])[1]
         payload = self.submap(tuple(center), self.global_window)
         payload["center"] = center
         self._publish("global_submap", payload)
@@ -546,7 +550,7 @@ class MappingDriver:
         """The non-internal layers on the submap of extent ``length_xy``
         around ``center_xy``, as host arrays."""
         with self._held():
-            state = self.mapper.state
+            state = self.mapper.live_state()
             position = host_state(state, [])[1]
             rs, cs = gm.submap_slices(self.geom, position, center_xy, length_xy)
             return _to_host({k: v[rs, cs] for k, v in state.layers.items()

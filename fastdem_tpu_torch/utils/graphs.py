@@ -21,13 +21,18 @@ On CUDA tensors:
   ``torch.cuda.CUDAGraph``, and replays it once: the first call's result is
   exactly one step.
 * A later call copies each input into its slot (not one the caller passed
-  as the slot itself) and replays.
+  as the slot itself) and replays. A donating step counts its calls whose
+  donated argument came in as its slots (``step.state_in_place``) and those
+  that copied it in (``step.state_copied_in``, the first call of each
+  signature among them), and marks each call's ``step.copy_in`` span with
+  ``STATE_IN_PLACE`` or ``STATE_COPIED_IN`` in its ``attr``.
 * ``donate``: the first output (the whole output when it is not a tuple)
   has the structure of the first argument, and the graph writes it into
   that argument's slots, so the returned state IS the slots and the next
   call that passes it back copies nothing. As in JAX, the state passed in
   is consumed: a caller that passes the slots must not expect them to keep
   their old values. Without ``donate`` that output is cloned.
+  ``CompiledStep.holds(tree)`` tells whether ``tree`` is such slots.
 * Every other output is cloned after the replay, so a value the caller
   holds never changes under a later call (JAX returns fresh arrays).
 * A capture that fails raises, naming the signature; nothing falls back to
@@ -104,6 +109,11 @@ _LAUNCH = tracing.name_id("step.launch")
 _CLONE_OUT = tracing.name_id("step.clone_out")
 _CAPTURE = tracing.name_id("step.capture")
 _DEVICE = tracing.name_id("step.device")
+
+# The ``attr`` of a donating step's ``step.copy_in`` span: its donated
+# argument came in as the graph's slots, or was copied into them.
+STATE_IN_PLACE = 1
+STATE_COPIED_IN = 2
 
 # Modules whose ``launches`` counter the graphs keep (``count_launches``).
 _COUNTED: List[Any] = []
@@ -326,6 +336,11 @@ class _Graph:
         """Copy the inputs into the slots, replay, and return the outputs
         (the donated ones as the slots, the others cloned)."""
         sp = tracing.begin(_COPY_IN)
+        if self.donated:
+            in_place = all(_same_memory(s, t) for s, t in
+                           zip(self.slots[: self.donated], leaves[: self.donated]))
+            tracing.count("step.state_in_place" if in_place else "step.state_copied_in")
+            tracing.tag(sp, STATE_IN_PLACE if in_place else STATE_COPIED_IN)
         for s, t in zip(self.slots, leaves):
             if not _same_memory(s, t):
                 s.copy_(t)
@@ -409,6 +424,16 @@ class CompiledStep:
         graph.stats.capture_seconds = time.perf_counter() - t0
         self.graphs[key] = graph
         return out
+
+    def holds(self, tree) -> bool:
+        """Whether ``tree``'s tensors are one graph's donated slots, i.e.
+        the state a donating call returned for that signature."""
+        _, leaves = _flatten(tree)
+        return any(
+            g.donated == len(leaves)
+            and all(_same_memory(s, t) for s, t in zip(g.slots, leaves))
+            for g in self.graphs.values()
+        )
 
     def stats(self) -> List[GraphStats]:
         """One entry per captured signature, in capture order."""

@@ -45,8 +45,9 @@ The collector's runs are spans too (``host.gc``, the generation as
 ``attr``), through ``gc.callbacks``, installed once.
 
 While ``torch.profiler`` records, each host span is also a
-``record_function`` range of the same name, and its ``attr`` is
-``PROFILED``: readers of the spans can leave out what the profiler slowed.
+``record_function`` range of the same name, and its ``attr`` holds the
+bit ``PROFILED``: readers of the spans can leave out what the profiler
+slowed. A span's site may add bits of its own to its ``attr`` (``tag``).
 ``export_chrome`` writes the
 ring as Chrome-trace events on the wall clock (``time.time_ns()``, the
 clock of kineto's timestamps), from an anchor between the two clocks taken
@@ -214,6 +215,15 @@ def close(seq: int, t: int = 0) -> None:
     j = (seq & _MASK) << 3
     if _Q[j] == seq:
         _Q[j + 4] = t
+
+
+def tag(seq: int, attr: int) -> None:
+    """Add ``attr``'s bits to the ``attr`` of the span ``begin`` returned."""
+    if seq < 0:
+        return
+    j = (seq & _MASK) << 3
+    if _Q[j] == seq:
+        _Q[j + 7] |= attr
 
 
 def mark(name: int, attr: int) -> None:
@@ -530,7 +540,7 @@ class Table:
         recorded while torch.profiler recorded, if earlier: such spans
         carry the profiler's cost."""
         a, b = int(t0_s * 1e9), int(t1_s * 1e9)
-        p = self.start[(self.attr == PROFILED) & (self.start >= a) & (self.start < b)]
+        p = self.start[((self.attr & PROFILED) != 0) & (self.start >= a) & (self.start < b)]
         return float(p.min()) * 1e-9 if len(p) else t1_s
 
     def durations_ms(self, rows: np.ndarray) -> np.ndarray:

@@ -31,7 +31,8 @@ packed, twophase and sort steps on the card against the CPU, and the
 microbatch and fused replay steps against the step loop; the facade's
 pinned staging ring against the blocking input path bit for bit (mixed
 sizes, host arrays overwritten while the ring comes round), without a
-synchronisation in steady state, and its counters.
+synchronisation in steady state, and its counters; the facade's donating
+step against the non-donating one over 40 scans of each preset's map.
 """
 
 import numpy as np
@@ -1373,3 +1374,61 @@ def test_staging_counters_on_card(cuda):
     assert len(rows) == 1
     assert (tab.parent_name_ids(rows) == tab.id_of("facade.prep")).all()
     assert (tab.durations_ms(rows) > 0).all()
+
+
+@pytest.mark.parametrize("preset", ["local_mapping", "global_mapping_node"])
+def test_donating_facade_equals_non_donating_on_card(cuda, preset):
+    """The facade's donating step against the same facade over a step that
+    copies the map into its graph and clones it out (``donate=False``): 40
+    scans of a VLP-16-sized cloud into each preset's map (LOCAL 150^2 with
+    K1 / K4, GLOBAL 2000^2 with its window) give the same map bit for bit,
+    every call after the first passes the graph's own slots back, and a
+    steady-state call clones none of the map's tensors, only the aux."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from fastdem_tpu_torch import presets
+    from fastdem_tpu_torch.mapping import pipeline as pl
+    from fastdem_tpu_torch.runtime.node_config import NodeConfig
+    from fastdem_tpu_torch.utils import tracing
+
+    class Copying(fd.FastDEM):
+        def _build_step(self):
+            return pl.build_integrate(self.geom, self.cfg, self.has_intensity, self.has_color,
+                                      window_margin=self._window_margin, jit=True,
+                                      donate=False, device=self.device)
+
+    class Clones(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ptrs = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.clone.default:
+                self.ptrs.append(args[0].data_ptr())
+            return func(*args, **(kwargs or {}))
+
+    nc = NodeConfig.parse(presets.get(preset))
+    geom = fd.GridGeometry.from_length(nc.map.width, nc.map.height, nc.map.resolution)
+    donating = fd.FastDEM(geom, nc.pipeline, device=cuda)
+    copying = Copying(geom, NodeConfig.parse(presets.get(preset)).pipeline, device=cuda)
+    xyz, poses = replay_scans(40, seed=29, n=18000)
+    T_bs = np.eye(4, dtype=np.float32)
+    T_bs[2, 3] = 1.0
+    clouds = [fd.cloud.from_numpy(x, frame_id="lidar", device="cpu") for x in xyz]
+    before = tracing.counters()
+    for k in range(39):
+        for mapper in (donating, copying):
+            assert mapper.integrate(clouds[k], T_bs, poses[k])
+    (graph,) = donating._step.graphs.values()
+    slots = {s.data_ptr() for s in graph.slots[: graph.donated]}
+    with Clones() as clones:
+        assert donating.integrate(clouds[39], T_bs, poses[39])
+    assert copying.integrate(clouds[39], T_bs, poses[39])
+    torch.cuda.synchronize()
+    assert len(clones.ptrs) == len(graph.outs) - graph.donated
+    assert not slots & set(clones.ptrs)
+    assert donating._step.holds(donating.live_state())
+    after = tracing.counters()
+    assert [after.get(c, 0) - before.get(c, 0)
+            for c in ("step.state_in_place", "step.state_copied_in")] == [39, 1]
+    assert_bitwise_on_card(copying.live_state(), donating.live_state())

@@ -20,6 +20,7 @@ Two parts:
   atan2's last bit, ``test_torch_pipeline.py``).
 """
 
+import copy
 import inspect
 
 import jax.numpy as jnp
@@ -367,8 +368,8 @@ def test_warm_up_runs_unless_the_caller_ran_the_step(recorded, warm):
 
 
 def test_facade_keeps_held_state_and_rebuild_drops_graphs(recorded, rng):
-    """The facade's step is captured without donation: a held state and a
-    held aux stay as they were; a setter's rebuild drops the graphs."""
+    """The facade's step donates its map, yet a held state and a held aux
+    stay as they were; a setter's rebuild drops the graphs."""
     geom = ft.GridGeometry.from_length(8.0, 8.0, 0.1)
     m = ft.FastDEM(geom, config(), device="cpu")
     ref = ft.FastDEM(geom, config(), device="cpu")
@@ -387,6 +388,89 @@ def test_facade_keeps_held_state_and_rebuild_drops_graphs(recorded, rng):
     assert len(old.graphs) == 2
     m.set_height_filter(-5.0, 5.0)
     assert not old.graphs and not m._step.graphs and m._step is not old
+
+
+class EagerFacade(ft.FastDEM):
+    """The facade over the eager step (``build_integrate(jit=False)``)."""
+
+    def _build_step(self):
+        return pl_t.build_integrate(self.geom, self.cfg, self.has_intensity, self.has_color,
+                                    window_margin=self._window_margin, jit=False,
+                                    device=self.device)
+
+
+@pytest.mark.parametrize("mode", ["LOCAL", "GLOBAL"])
+def test_donating_facade_equals_eager_loop(recorded, rng, mode):
+    """The facade's donating step against the eager step's facade, bit for
+    bit after every scan, over two capacities (two graphs), a ``state``
+    set mid-run, ``reset()``, a rebuild and a margin widening: a state
+    held from ``state`` never changes, a value set to ``state`` is never
+    written (neither by scans nor by ``reset()``), and the counters read
+    one copy-in per graph's first call, per switch of graph and per set
+    or rebuild, every other call in place."""
+    from fastdem_tpu_torch.utils import tracing
+
+    if mode == "LOCAL":
+        geom, cfg = ft.GridGeometry.from_length(8.0, 8.0, 0.1), config()
+    else:
+        geom = ft.GridGeometry.from_length(30.0, 30.0, 0.1)
+        cfg = config("GLOBAL", raycast=False, range_max=6.0)
+    m = ft.FastDEM(geom, cfg, device="cpu")
+    ref = EagerFacade(geom, copy.deepcopy(cfg), device="cpu")
+    wide = T_BS.copy()
+    wide[0, 3] = 1.8  # past the 2 m window margin: the facade widens it and rebuilds
+    before = tracing.counters()
+    k = 0
+
+    def scans(*sizes, T_bs=T_BS):
+        nonlocal k
+        for n in sizes:
+            xyz = scan(rng, n, reach=3.5)
+            for mapper in (m, ref):
+                assert mapper.integrate(ft.cloud.from_numpy(xyz, device="cpu"), T_bs, pose(k))
+            k += 1
+            assert_bitwise(m.live_state(), ref.live_state())
+
+    def counted():
+        now = tracing.counters()
+        return tuple(now.get(c, 0) - before.get(c, 0)
+                     for c in ("step.state_in_place", "step.state_copied_in"))
+
+    scans(1000, 1000, 3000, 1000)
+    assert len(m._step.graphs) == 2 and counted() == (1, 3)
+    held = m.state
+    kept = copy.deepcopy(held)
+    scans(1000, 1000, 1000)
+    assert_bitwise(held, kept)
+    assert counted() == (4, 3)
+
+    # A value set to ``state`` is copied into the slots by the next scan.
+    for mapper in (m, ref):
+        mapper.state = copy.deepcopy(held)
+    scans(1000)
+    assert_bitwise(held, kept)
+    assert counted() == (4, 4)
+
+    live = m.live_state()
+    for mapper in (m, ref):
+        mapper.reset()
+    assert m.live_state() is live and all(torch.isnan(v).all() for v in live.layers.values())
+    scans(1000, 3000, 3000)
+    assert counted() == (6, 5)
+
+    for mapper in (m, ref):
+        mapper.set_height_filter(-5.0, 5.0)
+    scans(3000, 3000)
+    assert counted() == (7, 6)
+    scans(3000, 3000, T_bs=wide)
+    assert m._window_margin == ref._window_margin == pytest.approx(2.8)
+    assert counted() == (8, 7)
+
+    # ``reset()`` of a value set to ``state`` clears new tensors.
+    m.state = held
+    m.reset()
+    assert_bitwise(held, kept)
+    assert torch.isnan(m.live_state().layers["elevation"]).all()
 
 
 def near_ties(xyz, dz=7e-7):

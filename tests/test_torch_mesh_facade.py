@@ -8,8 +8,9 @@ CPU with gloo, one 2x2 mesh block each, on the GLOBAL windowed path
     the benchmark cell's limit.
 (b) A rank that integrates one scan fewer in a call makes the next call
     raise on every rank, naming it, in time.
-(c) Without a mesh, the facade's graph signature and the ops it dispatches
-    are those of the facade before meshes (digests taken on that tree).
+(c) Without a mesh, the facade's graph signature is that of the facade
+    before meshes, and it dispatches the ops of its donating step
+    (digests taken on those trees).
 """
 
 import hashlib
@@ -216,14 +217,17 @@ class Ops(TorchDispatchMode):
 def test_one_card_facade_unchanged(monkeypatch):
     """Two capacities captured (a recording double stands in for CUDA
     graphs), then one replay and a reset under a recording dispatch mode:
-    the signatures and the ops are those of the facade before meshes."""
+    the signatures are those of the facade before meshes; the ops are the
+    donating step's (no copy of the map into the slots nor clone out of
+    them, one copy a layer into its slot inside the graph, a reset that
+    fills the slots in place)."""
     monkeypatch.setattr(graphs, "BACKEND", RecordingGraphs())
     geom = ft.GridGeometry.from_length(20.0, 20.0, 0.1)
     cfg = ft.Config()
     cfg.mapping.mode = ft.MappingMode.GLOBAL
     cfg.point_filter.range_max = 4.0
     m = FastDEM(geom, cfg, device="cpu")
-    assert m.mesh is None and m._step.donate is False
+    assert m.mesh is None and m._step.donate is True
     rng = np.random.default_rng(5)
     eye = np.eye(4, dtype=np.float32)
 
@@ -249,4 +253,4 @@ def test_one_card_facade_unchanged(monkeypatch):
         m.reset()
     digest = hashlib.sha256("\n".join(ops.names).encode()).hexdigest()
     assert (len(ops.names), digest) == (
-        581, "82e23e57fdb126a055006d88e071a05a13b64940394d8c885fedc525a37db10c")
+        555, "df54036c7d1d651a5dd16ac47390414107dc03de83fec61fb170758aa4c85cff")

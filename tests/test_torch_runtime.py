@@ -454,13 +454,16 @@ def test_run_postprocess_equals_jax(jax_driver_run):
 
 def test_snapshot_is_a_copy():
     """The post-processing snapshot clones its layers: an in-place change
-    of the map after it leaves the snapshot as it was."""
+    of the live map (the tensors the timers read and the next scan
+    updates) after it leaves the snapshot as it was."""
     with make_driver("port") as d:
         feed(d, "port")
         snap = d.snapshot()
         assert sorted(snap.layers) == sorted(driver_t.SNAPSHOT_LAYERS)
         before = snap.layers["elevation"].clone()
-        d.mapper.state.layers["elevation"].fill_(7.0)
+        live = d.mapper.live_state().layers["elevation"]
+        live.fill_(7.0)
+        assert torch.equal(d.mapper.state.layers["elevation"], live)
         assert torch.equal(snap.layers["elevation"].nan_to_num(), before.nan_to_num())
 
 
