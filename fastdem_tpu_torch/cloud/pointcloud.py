@@ -8,7 +8,7 @@ far-away 1e9 sentinel, so an unmasked consumer maps them out of any grid.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -51,12 +51,6 @@ class PointCloud:
     timestamp_ns: int = 0
     nominal_count: int = -1
     valid_count: int = -1
-    # A cloud made by ``stage``: the pinned host tensors its copies read
-    # from, held for as long as the cloud lives, so the asynchronous copies
-    # never read freed memory.
-    pinned_source: Optional[Tuple] = dataclasses.field(
-        default=None, repr=False, compare=False
-    )
 
     @property
     def capacity(self) -> int:
@@ -147,33 +141,6 @@ def from_numpy(
     )
 
 
-def stage(cloud: PointCloud, device="cuda") -> PointCloud:
-    """Start the copies of a host cloud to ``device`` and return the cloud
-    backed by the (possibly still in-flight) device tensors.
-
-    A CPU cloud bound for a CUDA device is copied through pinned host
-    memory with ``non_blocking=True`` on the current stream, so the copy
-    overlaps host work and is ordered before every later kernel on that
-    stream; the returned cloud holds the pinned source (``pinned_source``)
-    for as long as it lives. A cloud already on ``device`` is returned as
-    it is; any other move is a plain ``to``."""
-    dev = resolve_device(device)
-    if cloud.device == dev:
-        return cloud
-    if cloud.device.type != "cpu" or dev.type != "cuda":
-        return cloud.to(dev)
-    xyz = cloud.xyz.pin_memory()
-    mask = cloud.mask.pin_memory()
-    ch = {k: v.pin_memory() for k, v in cloud.channels.items()}
-    return dataclasses.replace(
-        cloud,
-        xyz=xyz.to(dev, non_blocking=True),
-        mask=mask.to(dev, non_blocking=True),
-        channels={k: v.to(dev, non_blocking=True) for k, v in ch.items()},
-        pinned_source=(xyz, mask, ch),
-    )
-
-
 def host_arrays(cloud: PointCloud):
     """(xyz, mask, channels) of the cloud as numpy arrays, in one read
     from its device (``interop.to_host``)."""
@@ -213,9 +180,7 @@ def pad_to(cloud: PointCloud, capacity: int) -> PointCloud:
         k: torch.cat([v, torch.zeros((extra,) + tuple(v.shape[1:]), dtype=v.dtype, device=dev)])
         for k, v in cloud.channels.items()
     }
-    return dataclasses.replace(
-        cloud, xyz=xyz, mask=mask, channels=ch, pinned_source=None
-    )
+    return dataclasses.replace(cloud, xyz=xyz, mask=mask, channels=ch)
 
 
 def bucket_capacity(n: int, granularity: int = 4096) -> int:

@@ -135,6 +135,15 @@ def create_map_state(
     )
 
 
+def missing_layers(
+    names, cfg: Config, has_intensity: bool, has_color: bool, shape, device
+) -> Dict[str, torch.Tensor]:
+    """The layers of ``cfg``'s set that ``names`` lacks, at their fills."""
+    return {name: torch.full(shape, fill, dtype=torch.float32, device=device)
+            for name, fill in initial_layer_fills(cfg, has_intensity, has_color).items()
+            if name not in names}
+
+
 def _estimate(state: GridMapState, cfg: Config, obs: raster.CellObservations):
     """Estimator update + bounds per touched cell."""
     if cfg.mapping.estimation_type == EstimationType.P2_QUANTILE:
@@ -1035,6 +1044,72 @@ def build_integrate_fused(
     return _compiled(_replay_in_chunks(geom, cfg, ph, None), jit, donate)
 
 
+class DeviceMap:
+    """A one-device facade's map and step, by the rules of ``FastDEM``'s
+    docstring: the facade's one way to its map (a mesh's map is the
+    subclass ``parallel.sharding.MeshMap``, which the mesh makes).
+    ``begin`` / ``end`` / ``check`` frame an ``integrate_sequence`` call."""
+
+    def __init__(self, geom: GridGeometry, cfg: Config, position, has_intensity: bool,
+                 has_color: bool, device: torch.device):
+        self.geom, self.device = geom, device
+        self.has_intensity, self.has_color = has_intensity, has_color
+        self._state = create_map_state(geom, cfg, position, has_intensity, has_color,
+                                       device=device)
+        self.step = None
+
+    def compile(self, cfg: Config, margin: float):
+        """The step for ``cfg``, compiled and donating the map."""
+        return build_integrate(
+            self.geom, cfg, self.has_intensity, self.has_color, window_margin=margin,
+            jit=True, donate=True, device=self.device,
+        )
+
+    def rebuild(self, cfg: Config, step) -> None:
+        """``step`` (made for ``cfg``) in place of the old one, whose graphs
+        go now; layers ``cfg`` adds are filled, the others kept."""
+        if isinstance(self.step, graphs.CompiledStep):
+            self.step.clear()
+        self.step = step
+        st = self._state
+        new = missing_layers(st.layers, cfg, self.has_intensity, self.has_color,
+                             self.geom.shape, self.device)
+        self._state = GridMapState(layers={**st.layers, **new}, position=st.position)
+
+    def scan(self, *inputs) -> IntegrateAux:
+        """One step on the map (the step's arguments after the state)."""
+        self._state, aux = self.step(self._state, *inputs)
+        return aux
+
+    @property
+    def state(self) -> GridMapState:
+        st = self._state
+        return GridMapState(layers={k: v.clone() for k, v in st.layers.items()},
+                            position=st.position.clone())
+
+    @state.setter
+    def state(self, value: GridMapState) -> None:
+        self._state = value
+
+    def live_state(self) -> GridMapState:
+        return self._state
+
+    def reset(self) -> None:
+        if isinstance(self.step, graphs.CompiledStep) and self.step.holds(self._state):
+            for v in self._state.layers.values():
+                v.fill_(np.nan)
+            return
+        self._state = gridmap.clear_all(self._state)
+
+    def begin(self, *counts) -> None:
+        """One device: a call is checked against no other process."""
+
+    end = begin  # end(scans, resets)
+
+    def check(self):
+        raise ValueError("mesh_check needs a facade built with mesh=")
+
+
 class FastDEM:
     """Host-side facade: owns the map state on ``device`` and the step.
 
@@ -1079,8 +1154,6 @@ class FastDEM:
     ):
         self.device = resolve_device(device)
         self.mesh = mesh
-        if mesh is not None and self.device not in mesh.local_devices():
-            raise ValueError(f"{self.device} is not a device of this process's blocks")
         self.geom = geom
         self.cfg = cfg or Config()
         self.frame_id = frame_id
@@ -1089,9 +1162,6 @@ class FastDEM:
         # Compact and re-pad scans to the capacity ladder when their valid
         # count sits well below capacity (see integrate()).
         self.auto_bucket = auto_bucket
-        self.state = create_map_state(
-            geom, self.cfg, position, has_intensity, has_color, device=self.device
-        )
         self._resets = 0
         # Base->sensor translation allowance baked into the update-window
         # and polar-field bounds; widened (with a step rebuild) when a
@@ -1104,12 +1174,9 @@ class FastDEM:
         self._scan_counter = 0
         # A CUDA facade's scan inputs go through pinned buffers (_stage).
         self._ring = staging.StagingRing(self.device) if self.device.type == "cuda" else None
-        self._step = self._build_step()
-        self._sync = None
-        if mesh is not None:
-            from fastdem_tpu_torch.parallel.distributed import CallSync
-
-            self._sync = CallSync(mesh.rank, mesh.world, self.device)
+        new_map = DeviceMap if mesh is None else mesh.make_map
+        self._map = new_map(geom, self.cfg, position, has_intensity, has_color, self.device)
+        self._rebuild()
         self.calibration = None  # provider with get_extrinsic(frame_id)
         self.odometry = None  # provider with get_pose_at(timestamp_ns)
         self.on_preprocessed = None
@@ -1120,13 +1187,11 @@ class FastDEM:
     def state(self):
         """The map: a ``GridMapState``, or with a mesh a ``ShardedState`` of
         this process's blocks, cloned (the step updates its own in place)."""
-        if self.mesh is None:
-            st = self._state
-            return GridMapState(layers={k: v.clone() for k, v in st.layers.items()},
-                                position=st.position.clone())
-        from fastdem_tpu_torch.parallel.sharding import clone_state
+        return self._map.state
 
-        return clone_state(self._state)
+    @state.setter
+    def state(self, value) -> None:
+        self._map.state = value
 
     def live_state(self):
         """The map itself, not a copy: on the card, the tensors the next
@@ -1135,60 +1200,19 @@ class FastDEM:
         and enqueues its device reads on the current stream, or finishes
         them, before it lets the lock go. Every other reader takes
         ``state``."""
-        return self._state
+        return self._map.live_state()
 
-    @state.setter
-    def state(self, value) -> None:
-        if self.mesh is not None:
-            from fastdem_tpu_torch.parallel.sharding import ShardedState, clone_state, shard_state
-
-            value = (clone_state(value) if isinstance(value, ShardedState)
-                     else shard_state(value, self.mesh))
-        self._state = value
-
-    def _build_step(self):
-        if self.mesh is not None:
-            from fastdem_tpu_torch.parallel.sharding import build_sharded_integrate
-
-            step, _ = build_sharded_integrate(
-                self.geom, self.cfg, self.mesh, window_margin=self._window_margin,
-                jit=True, donate=True,
-            )
-            return step
-        # Captured per signature like the reference's jitted step, and
-        # donating: each call passes back the slots the last one returned,
-        # so the map is neither copied in nor cloned out (``state`` hands
-        # out copies).
-        return build_integrate(
-            self.geom, self.cfg, self.has_intensity, self.has_color,
-            window_margin=self._window_margin, jit=True, donate=True,
-            device=self.device,
-        )
+    # The map's step, which ``chip_smoke.py`` reads and swaps.
+    _step = property(lambda self: self._map.step,
+                     lambda self, step: setattr(self._map, "step", step))
 
     # -- fluent setters: each rebuilds the step ------------------------------
+    def _build_step(self):
+        """The map's step for ``cfg`` and the margin (``port_bench`` wraps it)."""
+        return self._map.compile(self.cfg, self._window_margin)
+
     def _rebuild(self):
-        # The new step captures anew; the old one's graphs go now.
-        for step in getattr(self._step, "per_device", {None: self._step}).values():
-            if isinstance(step, graphs.CompiledStep):
-                step.clear()
-        self._step = self._build_step()
-        # Estimator / raycast layer sets may change; keep existing layers.
-        fills = initial_layer_fills(self.cfg, self.has_intensity, self.has_color)
-        if self.mesh is not None:
-            shape = self._state.layout.block_shape
-            for slot, blk in self._state.blocks.items():
-                for name, fill in fills.items():
-                    if name not in blk:
-                        blk[name] = torch.full(shape, fill, dtype=torch.float32,
-                                               device=self.mesh.device(slot))
-            return
-        lyr = dict(self._state.layers)
-        for name, fill in fills.items():
-            if name not in lyr:
-                lyr[name] = torch.full(
-                    self.geom.shape, fill, dtype=torch.float32, device=self.device
-                )
-        self._state = GridMapState(layers=lyr, position=self._state.position)
+        self._map.rebuild(self.cfg, self._build_step())
 
     def set_mapping_mode(self, mode: MappingMode) -> "FastDEM":
         self.cfg.mapping.mode = mode
@@ -1238,16 +1262,7 @@ class FastDEM:
         own (a mesh's blocks, the graph's slots), else into new tensors, so
         a value set to ``state`` is never written."""
         self._resets += 1
-        if self.mesh is not None:
-            for blk in self._state.blocks.values():
-                for v in blk.values():
-                    v.fill_(np.nan)
-            return
-        if isinstance(self._step, graphs.CompiledStep) and self._step.holds(self._state):
-            for v in self._state.layers.values():
-                v.fill_(np.nan)
-            return
-        self._state = gridmap.clear_all(self._state)
+        self._map.reset()
 
     # -- integration ---------------------------------------------------------
     def integrate(self, cloud, T_base_sensor=None, T_world_base=None) -> bool:
@@ -1283,9 +1298,7 @@ class FastDEM:
             if prepared is None:
                 return False
             cloud, stepped, T_bs, T_wb, intensity, color_packed = prepared
-            self._state, aux = self._step(
-                self._state, stepped.xyz, stepped.mask, T_bs, T_wb, intensity, color_packed
-            )
+            aux = self._map.scan(stepped.xyz, stepped.mask, T_bs, T_wb, intensity, color_packed)
             sp = tracing.begin(_CALLBACKS)
             self._finish(cloud, stepped, aux)
             tracing.end(sp)
@@ -1339,9 +1352,7 @@ class FastDEM:
         # masked out, keeps the points' indices and, being at most the next
         # power of two, the rasterizer's argmin index width, so the map is
         # the unpadded scan's bit for bit.
-        cap = cloud.capacity
-        if isinstance(self._step, graphs.CompiledStep) or self.mesh is not None:
-            cap = pc.ladder_capacity(cap, base=1)
+        cap = pc.ladder_capacity(cloud.capacity, base=1)
 
         T_bs_host = _host_f32(T_base_sensor)
         self._guard_margin(T_bs_host)
@@ -1468,8 +1479,7 @@ class FastDEM:
         """
         if batch < 1:
             raise ValueError("batch must be >= 1")
-        if self._sync is not None:
-            self._sync.begin()
+        self._map.begin()
         n = len(clouds)
         tbs = twb = [None] * n
         if T_base_sensor is not None and T_world_base is not None:
@@ -1481,8 +1491,7 @@ class FastDEM:
             if len(tbs) != n:
                 raise ValueError("T_base_sensor must be one 4x4 or one per cloud")
         done = sum(self.integrate(c, b, w) for c, b, w in zip(clouds, tbs, twb))
-        if self._sync is not None:
-            self._sync.end(self._scan_counter, self._resets)
+        self._map.end(self._scan_counter, self._resets)
         return done
 
     def mesh_check(self):
@@ -1491,15 +1500,13 @@ class FastDEM:
         integrated, the resets), its collective waited for and checked
         first where it has not been; RuntimeError, on every rank, where the
         ranks' scans differ."""
-        if self._sync is None:
-            raise ValueError("mesh_check needs a facade built with mesh=")
-        return self._sync.check()
+        return self._map.check()
 
     def rasterized_cloud(self, aux: IntegrateAux):
         """One point per touched cell at (cell center, min_z)."""
         if aux.obs is None:
             raise NotImplementedError("a mesh facade's aux has no per-cell observations")
-        x, y = self.geom.cell_centers(self._state.position)
+        x, y = self.geom.cell_centers(self._map.live_state().position)
         return x, y, aux.obs.min_z, aux.obs.touched
 
 

@@ -45,11 +45,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from fastdem_tpu_torch.config import MappingMode
 from fastdem_tpu_torch.device import resolve_device
 from fastdem_tpu_torch.grid import gridmap
 from fastdem_tpu_torch.grid.geometry import GridGeometry
 from fastdem_tpu_torch.grid.gridmap import GridMapState
+from fastdem_tpu_torch.mapping.pipeline import DeviceMap, IntegrateAux, _phases_of, missing_layers
 from fastdem_tpu_torch.numerics import recip_f32
+from fastdem_tpu_torch.parallel.distributed import CallSync
 from fastdem_tpu_torch.utils import graphs, tracing
 
 MAP_AXES = ("mx", "my")
@@ -112,6 +115,10 @@ class BlockMesh:
             if self.device(s) not in out:
                 out.append(self.device(s))
         return out
+
+    def make_map(self, *args) -> "MeshMap":
+        """``MeshMap(self, *args)``: the map of a facade on this mesh."""
+        return MeshMap(self, *args)
 
 
 def make_mesh(
@@ -479,9 +486,6 @@ def _plan(
 ) -> _Plan:
     """The per-scan plan over the mesh's owned blocks; ValueError where the
     windowed formulation does not apply (``full_blocks`` False)."""
-    from fastdem_tpu_torch.config import MappingMode
-    from fastdem_tpu_torch.mapping.pipeline import IntegrateAux, _phases_of
-
     if window_update is False and not full_blocks:
         raise ValueError("caller pinned window_update=False")
     by_device = {
@@ -692,6 +696,50 @@ def build_sharded_integrate_sequence(
                                                 color_packed))[0]
 
     return _attach(seq, plan, fns, jit), lambda s: shard_state(s, mesh)
+
+
+class MeshMap(DeviceMap):
+    """A mesh facade's map (see ``FastDEM``): this process's blocks, in
+    place; a value set to ``state`` is cloned or sharded."""
+
+    def __init__(self, mesh: BlockMesh, geom: GridGeometry, cfg, position,
+                 has_intensity: bool, has_color: bool, device: torch.device):
+        if device not in mesh.local_devices():
+            raise ValueError(f"{device} is not a device of this process's blocks")
+        self.mesh = mesh
+        super().__init__(geom, cfg, position, has_intensity, has_color, device)
+        self.state = self._state
+        sync = CallSync(mesh.rank, mesh.world, device)
+        self.begin, self.end, self.check = sync.begin, sync.end, sync.check
+
+    def compile(self, cfg, margin: float):
+        step, _ = build_sharded_integrate(
+            self.geom, cfg, self.mesh, window_margin=margin, jit=True, donate=True,
+        )
+        return step
+
+    def rebuild(self, cfg, step) -> None:
+        for old in getattr(self.step, "per_device", {}).values():
+            old.clear()
+        self.step = step
+        shape = self._state.layout.block_shape
+        for slot, blk in self._state.blocks.items():
+            blk.update(missing_layers(blk, cfg, self.has_intensity, self.has_color, shape,
+                                      self.mesh.device(slot)))
+
+    @property
+    def state(self) -> ShardedState:
+        return clone_state(self._state)
+
+    @state.setter
+    def state(self, value) -> None:
+        self._state = (clone_state(value) if isinstance(value, ShardedState)
+                       else shard_state(value, self.mesh))
+
+    def reset(self) -> None:
+        for blk in self._state.blocks.values():
+            for v in blk.values():
+                v.fill_(np.nan)
 
 
 # ---- post-processing ----------------------------------------------------------

@@ -29,17 +29,16 @@ the reference jits both (``utils/graphs.py``): the step's graphs are
 captured inside ``FastDEM.integrate``, under the lock, and the chain is
 enqueued (and at its first call per map shape and switches, captured)
 under the lock too. So while a graph is captured no other thread of the
-node runs device work except the host reads (``interop.to_host``) and
-the next scans' staging, and those stay on the default stream, which the
-capture's own non-blocking stream does not wait for.
+node runs device work except the host reads (``interop.to_host``) on
+the default stream, which the capture's own non-blocking stream does not
+wait for.
 
 Spans (``utils/tracing.py``): a scan gets its id in ``on_scan``, and the
 queued scan carries it to the intake thread with the time it was queued:
 ``node.queue`` (queued until the intake thread takes it, the scan's
-``timestamp_ns`` as its ``attr``), ``node.stage`` (the stage-ahead copy,
-under the staged scan's id), ``node.lock_wait`` (from letting the waiting
-readers in until the lock is held), then the facade's spans. Each timer
-tick is ``node.tick.<timer>`` (the source of ``tick_ms``), with
+``timestamp_ns`` as its ``attr``), ``node.lock_wait`` (from letting the
+waiting readers in until the lock is held), then the facade's spans. Each
+timer tick is ``node.tick.<timer>`` (the source of ``tick_ms``), with
 ``node.lock_wait``, ``node.lock_held``, ``node.to_host``, ``pp.chain`` and
 ``node.publish`` inside. ``dropped_scans`` and ``intake_errors`` are the
 counters ``node.dropped_scans`` and ``node.intake_errors``.
@@ -58,7 +57,6 @@ from typing import Callable, Deque, Dict, Optional
 
 import numpy as np
 
-from fastdem_tpu_torch.cloud.pointcloud import stage
 from fastdem_tpu_torch.config import Config, PostProcessConfig
 from fastdem_tpu_torch.device import resolve_device
 from fastdem_tpu_torch.grid import gridmap as gm
@@ -72,7 +70,6 @@ from fastdem_tpu_torch.utils import graphs, tracing
 log = logging.getLogger("fastdem_tpu_torch.runtime")
 
 _QUEUE = tracing.name_id("node.queue")
-_STAGE = tracing.name_id("node.stage")
 _LOCK_WAIT = tracing.name_id("node.lock_wait")
 _LOCK_HELD = tracing.name_id("node.lock_held")
 _TO_HOST = tracing.name_id("node.to_host")
@@ -134,7 +131,12 @@ class _HandoffLock:
 
 
 class MappingDriver:
-    """Online mapping session driver on ``device``."""
+    """Online mapping session driver on ``device``.
+
+    A divergence of signature only: the reference's stage-ahead switch
+    (after ``max_queue``) is not taken, since every host cloud reaches the
+    card through the facade's pinned ring (``mapping/staging.py``), whose
+    asynchronous copies overlap as the stage-ahead's did."""
 
     def __init__(
         self,
@@ -151,7 +153,6 @@ class MappingDriver:
         async_intake: bool = False,
         burst_batch: int = 8,
         max_queue: int = 64,
-        stage_ahead: bool = True,
         *,
         device="cuda",
         **mapper_kwargs,
@@ -197,9 +198,6 @@ class MappingDriver:
         self.async_intake = async_intake
         self.burst_batch = max(1, burst_batch)
         self.max_queue = max(1, max_queue)
-        # While a burst integrates, the next queued scans' host-to-device
-        # copies are started (pointcloud.stage).
-        self.stage_ahead = stage_ahead
         self.dropped_scans = 0
         # Bursts whose integration raised (logged; the worker goes on).
         self.intake_errors = 0
@@ -259,34 +257,10 @@ class MappingDriver:
                 items = self._queue[: self.burst_batch]
                 del self._queue[: len(items)]
                 self._inflight = len(items)
-                to_stage = list(self._queue[: self.burst_batch]) if self.stage_ahead else []
             taken = time.perf_counter_ns()
             for c, _, _, scan, queued in items:
                 tracing.record(_QUEUE, queued, taken, scan=scan,
                                attr=getattr(c, "timestamp_ns", 0) or 0)
-            if to_stage:
-                # Start the next burst's copies while this one computes.
-                # Entries are re-matched by identity under a short
-                # re-acquire, so drops that happened meanwhile stay intact.
-                staged = []
-                for orig in to_stage:
-                    c, tbs, twb, scan, queued = orig
-                    tracing.set_scan(scan)
-                    sp = tracing.begin(_STAGE)
-                    try:
-                        staged.append((orig, (stage(c, self.device), tbs, twb, scan, queued)))
-                    except Exception:  # noqa: BLE001
-                        break
-                    finally:
-                        tracing.end(sp)
-                tracing.set_scan(0)
-                if staged:
-                    with self._qcond:
-                        for orig, new in staged:
-                            for i, cur in enumerate(self._queue):
-                                if cur is orig or cur[0] is orig[0]:
-                                    self._queue[i] = new
-                                    break
             try:
                 self._integrate_burst(items)
             except Exception:  # noqa: BLE001 - intake must not die

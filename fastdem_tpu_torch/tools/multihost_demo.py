@@ -136,7 +136,7 @@ def main(argv=None):
                            torch.ones((K, n), dtype=torch.bool, device=dev),
                            torch.tensor(T_bs, device=dev), torch.tensor(T_wb, device=dev))
     else:
-        run = mapper._step
+        run = mapper._map.step
         for x, T in zip(xyz, T_wb):
             mapper.integrate(pc.from_numpy(x, frame_id="lidar", device="cpu"), T_bs, T)
     state = mapper.state

@@ -139,53 +139,52 @@ def _counters_kept():
             m.launches = n
 
 
+def _walk(x, leaves: List[torch.Tensor]):
+    """The structure of ``x``, its tensors appended to ``leaves``. Not a
+    closure calling itself: that is a cycle, holding every tensor it saw."""
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return _LEAF
+    if getattr(x, "graph_constant", False):
+        hash(x)
+        return ("const", x)
+    if isinstance(x, tuple):
+        return ("tuple", tuple(_walk(v, leaves) for v in x))
+    if isinstance(x, list):
+        return ("list", tuple(_walk(v, leaves) for v in x))
+    if isinstance(x, dict):
+        return ("dict", tuple((k, _walk(v, leaves)) for k, v in x.items()))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return ("dataclass", type(x),
+                tuple((f.name, _walk(getattr(x, f.name), leaves))
+                      for f in dataclasses.fields(x)))
+    hash(x)  # a constant of the signature must be hashable
+    return ("const", x)
+
+
 def _flatten(tree) -> Tuple[Any, List[torch.Tensor]]:
     """(structure, tensor leaves) of a pytree; the structure is hashable
     and holds every non-tensor value."""
     leaves: List[torch.Tensor] = []
-
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            leaves.append(x)
-            return _LEAF
-        if getattr(x, "graph_constant", False):
-            hash(x)
-            return ("const", x)
-        if isinstance(x, tuple):
-            return ("tuple", tuple(walk(v) for v in x))
-        if isinstance(x, list):
-            return ("list", tuple(walk(v) for v in x))
-        if isinstance(x, dict):
-            return ("dict", tuple((k, walk(v)) for k, v in x.items()))
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            return ("dataclass", type(x),
-                    tuple((f.name, walk(getattr(x, f.name))) for f in dataclasses.fields(x)))
-        hash(x)  # a constant of the signature must be hashable
-        return ("const", x)
-
-    return walk(tree), leaves
+    return _walk(tree, leaves), leaves
 
 
 def _unflatten(spec, leaves) -> Any:
-    """The pytree of ``spec`` with its tensors taken from ``leaves`` in
-    order."""
+    """The pytree of ``spec`` with its tensors taken from ``leaves`` (a
+    list, or an iterator the recursion shares) in order."""
     it = iter(leaves)
-
-    def build(s):
-        if s == _LEAF:
-            return next(it)
-        kind = s[0]
-        if kind == "tuple":
-            return tuple(build(v) for v in s[1])
-        if kind == "list":
-            return [build(v) for v in s[1]]
-        if kind == "dict":
-            return {k: build(v) for k, v in s[1]}
-        if kind == "dataclass":
-            return s[1](**{name: build(v) for name, v in s[2]})
-        return s[1]
-
-    return build(spec)
+    if spec == _LEAF:
+        return next(it)
+    kind = spec[0]
+    if kind == "tuple":
+        return tuple(_unflatten(v, it) for v in spec[1])
+    if kind == "list":
+        return [_unflatten(v, it) for v in spec[1]]
+    if kind == "dict":
+        return {k: _unflatten(v, it) for k, v in spec[1]}
+    if kind == "dataclass":
+        return spec[1](**{name: _unflatten(v, it) for name, v in spec[2]})
+    return spec[1]
 
 
 @dataclasses.dataclass
@@ -385,8 +384,12 @@ class CompiledStep:
             tracing.end(sp)
 
     def _call(self, args, kwargs):
-        spec0, leaves0 = _flatten(args[0]) if args else (None, [])
-        spec, leaves = _flatten((args, kwargs))
+        # One walk, the first argument's leaves first: ``_flatten((args, kwargs))``.
+        leaves: List[torch.Tensor] = []
+        head = tuple(_walk(a, leaves) for a in args[:1])
+        n_donated = len(leaves)
+        spec = ("tuple", (("tuple", head + tuple(_walk(a, leaves) for a in args[1:])),
+                          _walk(kwargs, leaves)))
         dev = leaves[0].device if leaves else None
         if dev is None or not BACKEND.applies(dev):
             return self.fn(*args, **kwargs)
@@ -398,7 +401,8 @@ class CompiledStep:
             if graph is not None:
                 out = graph.replay(leaves)
             else:
-                out = self._capture(key, spec, leaves, spec0, len(leaves0), dev)
+                out = self._capture(key, spec, leaves, head[0] if head else None,
+                                    n_donated, dev)
             if dev.type == "cuda":
                 tracing.device_span(_DEVICE, dev)
                 tracing.sample_allocs(dev)

@@ -18,9 +18,9 @@ windowed GLOBAL with Kalman and P^2) on the card against the same sessions
 on the CPU, and the post-processing chain and the sampled raycast on the
 card against the CPU; batched replay against the integrate loop bit for
 bit, the node's driver with async intake against its sync intake,
-``stage()``'s pinned copy, and ``integrate_sequence`` with the poses as a
-list of CUDA tensors; the grid kNN and radius search against the brute
-tile and the CPU, and ``build_dem`` on the card against the CPU; normals,
+and ``integrate_sequence`` with the poses as a list of CUDA tensors; the
+grid kNN and radius search against the brute tile and the CPU, and
+``build_dem`` on the card against the CPU; normals,
 segmentation and registration on the card against the CPU, and the PRNG's
 draws on the card equal to the CPU's; the block-sharded map on a 2x2 mesh
 of one card against the unsharded step bit for bit (K1 once and K4 once
@@ -530,30 +530,6 @@ def test_async_driver_on_card(cuda):
                                       err_msg=name)
 
 
-def test_stage_keeps_its_pinned_source(cuda):
-    """stage() copies a CPU cloud to the card through pinned memory without
-    waiting; the staged cloud holds the pinned source and equals the cloud."""
-    import gc
-
-    from fastdem_tpu_torch.cloud import pointcloud as pc
-
-    rng = np.random.default_rng(9)
-    xyz = rng.normal(size=(50000, 3)).astype(np.float32)
-    inten = rng.uniform(size=50000).astype(np.float32)
-    host = pc.from_numpy(xyz, intensity=inten, frame_id="lidar", device="cpu")
-    staged = pc.stage(host, cuda)
-    del host
-    gc.collect()
-    assert staged.device.type == "cuda"
-    src_xyz, src_mask, src_ch = staged.pinned_source
-    assert src_xyz.is_pinned() and src_mask.is_pinned() and src_ch["intensity"].is_pinned()
-    torch.cuda.synchronize()
-    np.testing.assert_array_equal(staged.xyz.cpu().numpy(), xyz)
-    np.testing.assert_array_equal(staged.channels["intensity"].cpu().numpy(), inten)
-    assert bool(staged.mask.all()) and staged.valid_count == 50000
-    assert pc.stage(staged, cuda) is staged
-
-
 def test_integrate_sequence_takes_cuda_tensor_lists(cuda):
     """Poses given as a list of CUDA tensors (and T_bs as one) map exactly
     as the numpy call."""
@@ -882,14 +858,16 @@ def test_facade_graphs_per_power_of_two_on_card(cuda):
     T_bs = np.eye(4, dtype=np.float32)
     T_bs[2, 3] = 1.0
     graph = fd.FastDEM(geom, fd.Config(), device=cuda)
-    eager = fd.FastDEM(geom, fd.Config(), device=cuda)
-    eager._step = fd.build_integrate(geom, eager.cfg, jit=False, device=cuda)
+    eager = fd.build_integrate(geom, fd.Config(), jit=False, device=cuda)
+    state = fd.create_map_state(geom, fd.Config(), device=cuda)
     for k, n in enumerate(sizes):
-        for m in (graph, eager):
-            assert m.integrate(fd.cloud.from_numpy(xyz[k][:n], device=cuda), T_bs, poses[k])
+        cloud = fd.cloud.from_numpy(xyz[k][:n], device=cuda)
+        assert graph.integrate(cloud, T_bs, poses[k])
+        state, _ = eager(state, cloud.xyz, cloud.mask, torch.as_tensor(T_bs, device=cuda),
+                         torch.as_tensor(poses[k], device=cuda))
         assert graph.last_aux.world_xyz.shape == (n, 3)
-    assert_bitwise_on_card(eager.state, graph.state)
-    caps = sorted(s.shape[0] for g in graph._step.graphs.values() for s in g.slots
+    assert_bitwise_on_card(state, graph.state)
+    caps = sorted(s.shape[0] for g in graph._map.step.graphs.values() for s in g.slots
                   if s.dim() == 2 and s.shape[1] == 3)
     assert caps == [8192, 16384, 32768]
 
@@ -1251,7 +1229,7 @@ def blocking_loop(mapper, clouds, T_bs, poses):
     for c, T_wb in zip(clouds, poses):
         g = c.to(dev)
         g = pc.pad_to(g, pc.ladder_capacity(g.capacity, base=1))
-        mapper.state, _ = mapper._step(
+        mapper.state, _ = mapper._map.step(
             mapper.state, g.xyz, g.mask,
             torch.as_tensor(np.asarray(T_bs, dtype=np.float32), device=dev),
             torch.as_tensor(T_wb, dtype=torch.float32, device=dev),
@@ -1419,7 +1397,7 @@ def test_donating_facade_equals_non_donating_on_card(cuda, preset):
     for k in range(39):
         for mapper in (donating, copying):
             assert mapper.integrate(clouds[k], T_bs, poses[k])
-    (graph,) = donating._step.graphs.values()
+    (graph,) = donating._map.step.graphs.values()
     slots = {s.data_ptr() for s in graph.slots[: graph.donated]}
     with Clones() as clones:
         assert donating.integrate(clouds[39], T_bs, poses[39])
@@ -1427,7 +1405,7 @@ def test_donating_facade_equals_non_donating_on_card(cuda, preset):
     torch.cuda.synchronize()
     assert len(clones.ptrs) == len(graph.outs) - graph.donated
     assert not slots & set(clones.ptrs)
-    assert donating._step.holds(donating.live_state())
+    assert donating._map.step.holds(donating.live_state())
     after = tracing.counters()
     assert [after.get(c, 0) - before.get(c, 0)
             for c in ("step.state_in_place", "step.state_copied_in")] == [39, 1]

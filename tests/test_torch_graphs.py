@@ -21,7 +21,9 @@ Two parts:
 """
 
 import copy
+import gc
 import inspect
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -367,13 +369,35 @@ def test_warm_up_runs_unless_the_caller_ran_the_step(recorded, warm):
     assert x.tolist() == [3.0, 7.0, 11.0, 15.0, 19.0, 23.0] and float(total) == 36.0
 
 
+def test_step_frees_its_inputs_and_outputs_without_the_collector(recorded):
+    """With the cyclic collector off, a step's input tensors and its
+    returned outputs are freed as soon as the caller drops them: neither
+    the signature's walk nor the outputs' assembly leaves a reference
+    cycle behind, at the capture and at a replay."""
+    step = graphs.jit(lambda s, x: (s + x, {"twice": x * 2.0}))
+    state = torch.zeros(4)
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for _ in range(3):
+            x = torch.ones(4)
+            state, out = step(state, x)
+            refs = [weakref.ref(x), weakref.ref(out["twice"])]
+            del x, out
+            assert [r() for r in refs] == [None, None]
+    finally:
+        if was_enabled:
+            gc.enable()
+    assert state.tolist() == [3.0] * 4 and len(step.graphs) == 1
+
+
 def test_facade_keeps_held_state_and_rebuild_drops_graphs(recorded, rng):
     """The facade's step donates its map, yet a held state and a held aux
     stay as they were; a setter's rebuild drops the graphs."""
     geom = ft.GridGeometry.from_length(8.0, 8.0, 0.1)
     m = ft.FastDEM(geom, config(), device="cpu")
     ref = ft.FastDEM(geom, config(), device="cpu")
-    ref._step = pl_t.build_integrate(geom, ref.cfg, jit=False, device="cpu")
+    ref._map.step = pl_t.build_integrate(geom, ref.cfg, jit=False, device="cpu")
     for k, (xyz, _, T_wb) in enumerate(buckets(rng, 4)):
         held, aux = m.state, m.last_aux
         copies = ({n: v.clone() for n, v in held.layers.items()},
@@ -384,10 +408,10 @@ def test_facade_keeps_held_state_and_rebuild_drops_graphs(recorded, rng):
         if aux is not None:
             np.testing.assert_array_equal(aux.obs.min_z.numpy(), copies[1].numpy())
     assert_bitwise(m.state, ref.state)
-    old = m._step
+    old = m._map.step
     assert len(old.graphs) == 2
     m.set_height_filter(-5.0, 5.0)
-    assert not old.graphs and not m._step.graphs and m._step is not old
+    assert not old.graphs and not m._map.step.graphs and m._map.step is not old
 
 
 class EagerFacade(ft.FastDEM):
@@ -437,7 +461,7 @@ def test_donating_facade_equals_eager_loop(recorded, rng, mode):
                      for c in ("step.state_in_place", "step.state_copied_in"))
 
     scans(1000, 1000, 3000, 1000)
-    assert len(m._step.graphs) == 2 and counted() == (1, 3)
+    assert len(m._map.step.graphs) == 2 and counted() == (1, 3)
     held = m.state
     kept = copy.deepcopy(held)
     scans(1000, 1000, 1000)
@@ -507,9 +531,9 @@ def test_facade_pads_scans_to_powers_of_two(recorded, rng):
             got, want = getattr(m_t.last_aux, f).numpy(), np.asarray(getattr(m_j.last_aux, f))
             assert got.shape == want.shape == (n,) + want.shape[1:], f
             np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8), err_msg=f)
-    assert sorted(s.shape[0] for g in m_t._step.graphs.values() for s in g.slots
+    assert sorted(s.shape[0] for g in m_t._map.step.graphs.values() for s in g.slots
                   if s.dim() == 2 and s.shape[1] == 3) == [1024, 2048, 4096]
-    assert sorted(g.stats.replays for g in m_t._step.graphs.values()) == [1, 2, 2]
+    assert sorted(g.stats.replays for g in m_t._map.step.graphs.values()) == [1, 2, 2]
 
 
 def test_facade_graphs_stay_within_the_rungs(recorded, rng):
@@ -523,7 +547,7 @@ def test_facade_graphs_stay_within_the_rungs(recorded, rng):
         assert m.integrate(ft.cloud.from_numpy(scan(rng, int(n), reach=2.5), device="cpu"),
                            T_BS, pose(k % 4))
     rungs = {1 << int(n - 1).bit_length() for n in sizes}
-    assert len(m._step.graphs) == len(rungs) <= 5
+    assert len(m._map.step.graphs) == len(rungs) <= 5
 
 
 def test_cpu_chain_runs_outside_the_lock(rng):

@@ -93,7 +93,7 @@ with np.load(scans) as f:
 geom = ft.GridGeometry.from_length(node["map"]["width"], node["map"]["height"],
                                    node["map"]["resolution"])
 m = FastDEM(geom, NodeConfig.parse(node).pipeline, device="cpu", mesh=mesh)
-print("formulation", m._step.formulation, "blocks", mesh.local_slots(), flush=True)
+print("formulation", m._map.step.formulation, "blocks", mesh.local_slots(), flush=True)
 for call in calls:
     if call is None:
         m.reset()
@@ -227,7 +227,7 @@ def test_one_card_facade_unchanged(monkeypatch):
     cfg.mapping.mode = ft.MappingMode.GLOBAL
     cfg.point_filter.range_max = 4.0
     m = FastDEM(geom, cfg, device="cpu")
-    assert m.mesh is None and m._step.donate is True
+    assert m.mesh is None and m._map.step.donate is True
     rng = np.random.default_rng(5)
     eye = np.eye(4, dtype=np.float32)
 
@@ -238,8 +238,8 @@ def test_one_card_facade_unchanged(monkeypatch):
 
     for n in (1000, 3000, 1000):
         m.integrate_sequence([cloud(n)], eye, eye[None])
-    keys = list(m._step.graphs)
-    assert [g.stats.replays for g in m._step.graphs.values()] == [2, 1]
+    keys = list(m._map.step.graphs)
+    assert [g.stats.replays for g in m._map.step.graphs.values()] == [2, 1]
     for key, cap in zip(keys, (1024, 4096)):
         assert [(tuple(s), d) for s, d, _ in key[1]] == (
             [((200, 200), torch.float32)] * 11 + [((2,), torch.float32), ((cap, 3), torch.float32),

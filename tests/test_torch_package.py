@@ -4,6 +4,7 @@
 fail at once, and print no result, where CUDA is not available.
 """
 
+import ast
 import os
 import re
 import subprocess
@@ -105,6 +106,30 @@ def test_no_jax_import_in_sources():
     for path in sources:
         with open(path) as f:
             assert not pattern.search(f.read()), path
+
+
+def test_mapping_imports_nothing_of_parallel():
+    """The mapping layer sits below the scale-out layer: no module of
+    ``mapping/`` imports ``fastdem_tpu_torch.parallel``, at its top or
+    inside a function (a mesh hands the facade its own map object)."""
+    mapping = os.path.join(PACKAGE, "mapping")
+    sources = sorted(f for f in os.listdir(mapping) if f.endswith(".py"))
+    assert "pipeline.py" in sources
+    for name in sources:
+        with open(os.path.join(mapping, name)) as f:
+            tree = ast.parse(f.read(), name)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                targets = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                targets = [node.module or ""] + [
+                    f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            bad = [t for t in targets
+                   if t == "fastdem_tpu_torch.parallel"
+                   or t.startswith("fastdem_tpu_torch.parallel.")]
+            assert not bad, f"mapping/{name}:{node.lineno} imports {bad}"
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -210,9 +210,9 @@ def test_facade_probes(rng):
 
 def test_facade_setters_rebuild(rng):
     geom, m = small_mapper()
-    step = m._step
+    step = m._map.step
     m.enable_raycasting(False)
-    assert m._step is not step
+    assert m._map.step is not step
     assert m.integrate(small_cloud(rng), np.eye(4, dtype=np.float32),
                        np.eye(4, dtype=np.float32))
     assert torch.isnan(m.state.layers["raycasting"]).all()  # not updated

@@ -406,4 +406,3 @@ def test_cloud_helpers_match_jax():
     for n in (0, 1, 4095, 4096, 4097, 30000, 32768):
         assert pc_t.bucket_capacity(n) == pc_j.bucket_capacity(n)
     assert ct.has("intensity") and not ct.has("color")
-    assert pc_t.stage(ct, "cpu") is ct

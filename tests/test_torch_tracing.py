@@ -180,7 +180,7 @@ def test_trace_off_records_no_span_while_ticks_and_counters_advance(monkeypatch)
         assert all(ms > 0.0 for ms in d.tick_ms["viz"])
     after = tracing.counters()
     # Captured: the step above and the facade's (one scan size).
-    assert len(d.mapper._step.graphs) == 1
+    assert len(d.mapper._map.step.graphs) == 1
     assert after["step.captures"] == before.get("step.captures", 0) + 2
     assert after["host.gc_collections.2"] >= before["host.gc_collections.2"] + 1
     assert sum(g.replays for g in step.stats()) == 3

@@ -208,7 +208,7 @@ class TestExtrinsicMarginGuard:
         T_bs, xyz = self.boom()
         T_bs[0, 3] = 1.4  # within the facade's 2 m margin: no widening
         mapper = ft.FastDEM(geom40(), config(ft, raycast=False), device="cpu")
-        mapper._step = ft.build_integrate(mapper.geom, mapper.cfg, window_margin=0.0,
+        mapper._map.step = ft.build_integrate(mapper.geom, mapper.cfg, window_margin=0.0,
                                           device="cpu")
         mapper._oow_check_every = 1
         with caplog.at_level(logging.ERROR, logger="fastdem_tpu_torch"):
@@ -302,7 +302,7 @@ def test_rows_above_2_19_cells_against_jax_packed():
         assert mj.integrate(pc_j.from_numpy(xyz, frame_id="lidar"), T_bs, T)
         assert mt.integrate(from_numpy(xyz, frame_id="lidar", device="cpu"), T_bs, T)
     assert mt.last_aux.oow_points is None  # no window
-    assert mt._step.scatter_mode == "packed"
+    assert mt._map.step.scatter_mode == "packed"
     mapped = np.isfinite(np.asarray(mj.state.layers["elevation"]))
     assert mapped.sum() > 8000
     assert_layers_bitwise(mj.state.layers, mt.state)
@@ -330,7 +330,7 @@ def test_windowed_switch_to_packed_against_jax():
     T_bs[2, 3] = 1.0
     from fastdem_tpu.cloud import pointcloud as pc_j
 
-    assert maps[1]._step.scatter_mode == "packed"
+    assert maps[1]._map.step.scatter_mode == "packed"
     for xyz, T in _rows_vs_packed_scans(rng, k_scans=2, n=20000):
         xyz = xyz * np.array([8.0, 8.0, 1.0], np.float32)  # out to 64 m
         assert maps[0].integrate(pc_j.from_numpy(xyz, frame_id="lidar"), T_bs, T)
@@ -362,7 +362,7 @@ def test_sampled_raycast_on_a_large_global_map():
         assert maps[1].integrate(from_numpy(xyz, frame_id="lidar", device="cpu"), T_bs, T)
     got = maps[1].state.layers
     assert maps[1].last_aux.oow_points is None
-    assert maps[1]._step.scatter_mode == "packed"
+    assert maps[1]._map.step.scatter_mode == "packed"
     assert_layers_bitwise(maps[0].state.layers, maps[1].state)
     assert torch.isfinite(got["elevation"]).sum() > 1000
     assert torch.isfinite(got["raycasting"]).sum() > 1000
