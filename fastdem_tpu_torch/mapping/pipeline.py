@@ -308,8 +308,11 @@ def build_integrate(
     capacity, channels, the rank of ``T_bs``, ``block``) and replayed, one
     graph launch a scan (``utils/graphs.py``); with ``donate`` the state
     passed in is consumed and the returned state is the graph's own slots,
-    updated in place. On the CPU ``jit`` runs the step as it is.
-    ``jit=False`` is the eager step, which dispatches every op from Python.
+    updated in place (the windowed update writes its window into them).
+    On the CPU ``jit`` runs the step as it is, on a copy of the state.
+    ``jit=False`` is the eager step (``graphs.plain``), which dispatches
+    every op from Python on a copy of the state; its ``fn`` runs on the
+    state passed in.
     """
     dev = resolve_device(device)
     ph = _build_phases(
@@ -363,8 +366,9 @@ def build_integrate(
 
 def _compiled(fn, jit: bool, donate: bool, **attrs):
     """``fn`` as the builders return it: captured per signature with
-    ``jit`` (``graphs.jit``), as it is without; ``attrs`` set on it."""
-    step = graphs.jit(fn, donate=donate) if jit else fn
+    ``jit`` (``graphs.jit``), on a copy of its state without
+    (``graphs.plain``); ``attrs`` set on it."""
+    step = graphs.jit(fn, donate=donate) if jit else graphs.plain(fn)
     for name, value in attrs.items():
         setattr(step, name, value)
     return step
@@ -841,9 +845,12 @@ def _build_phases(
             return update_layers(state, pa.obs, pa.ray, pa.sensor_origin, frame_nonempty)
 
         # Windowed update: the same per-cell recurrences on a window of
-        # every layer, written back into a copy of the layer. Every touched
-        # cell is in the window, so outside it only the per-frame overwrite
-        # layers change: NaN when the frame is nonempty, kept otherwise.
+        # every layer, written back into the layer in place (the step owns
+        # its state: a graph's slots, or the copy ``graphs.plain`` and the
+        # CPU path hand it). Every read precedes the first write. Every
+        # touched cell is in the window, so outside it only the per-frame
+        # overwrite layers change: NaN when the frame is nonempty, kept
+        # otherwise.
         views = {k: win.read(v) for k, v in state.layers.items()}
         vstate = update_layers(
             GridMapState(layers=views, position=state.position),
@@ -852,10 +859,8 @@ def _build_phases(
         new_layers = {}
         for k, full in state.layers.items():
             if k in (layers.obstacle, layers.raycasting):
-                base = torch.where(frame_nonempty, np.nan, full)
-            else:
-                base = full.clone()
-            new_layers[k] = win.write_(base, vstate.layers[k])
+                full.masked_fill_(frame_nonempty, np.nan)
+            new_layers[k] = win.write_(full, vstate.layers[k])
         return GridMapState(layers=new_layers, position=state.position)
 
     # The reference batches phase A only in rows mode on the full map with
@@ -992,7 +997,7 @@ def build_integrate_sequence(
         )
     step = build_integrate(
         geom, cfg, has_intensity, has_color, jit=False, device=device, **step_kwargs
-    )
+    ).fn  # on the state the sequence owns
 
     def integrate_sequence(
         state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None

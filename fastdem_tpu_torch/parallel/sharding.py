@@ -571,7 +571,8 @@ def _attach(fn, plan: _Plan, fns: dict, jit: bool):
 def _step_of(plan: _Plan, jit: bool, donate: bool):
     """The per-scan step of ``plan``: the exchange, if any, then each
     device's work (one graph per device and signature with ``jit``)."""
-    fns = {dev: graphs.jit(w, donate=donate) if jit else w for dev, w in plan.work.items()}
+    fns = {dev: graphs.jit(w, donate=donate) if jit else graphs.plain(w)
+           for dev, w in plan.work.items()}
 
     def step(state, xyz, mask, T_bs, T_wb, intensity=None, color_packed=None):
         if plan.exchange is not None:
@@ -645,8 +646,8 @@ def build_sharded_integrate(
     blocks and position are the graphs' own slots, updated in place;
     without it the step never updates its input. A capture that fails
     raises, naming the signature. On the CPU ``jit`` runs the step as it
-    is. ``step.per_device`` maps each device to its graph step (or to the
-    plain function with ``jit=False``).
+    is, on a copy of the blocks. ``step.per_device`` maps each device to
+    its graph step (or to its ``graphs.plain`` step with ``jit=False``).
 
     Returns (step, shard_fn) with shard_fn(state) = shard_state(state, mesh).
     """
@@ -687,7 +688,7 @@ def build_sharded_integrate_sequence(
         step = _step_of(plan, jit, donate)
         return _attach(_scans(step), plan, step.per_device, jit), lambda s: shard_state(s, mesh)
     fns = {
-        dev: graphs.jit(_scans(w), donate=donate) if jit else _scans(w)
+        dev: graphs.jit(_scans(w), donate=donate) if jit else graphs.plain(_scans(w))
         for dev, w in plan.work.items()
     }
 

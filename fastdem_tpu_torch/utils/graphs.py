@@ -16,10 +16,13 @@ On CUDA tensors:
 * The first call of a signature allocates one slot per input tensor,
   copies the inputs in, runs ``fn`` once on the slots on a side stream
   (the warm-up: it loads the kernels, sets their attributes and fills the
-  caching allocator; its result is dropped, and ``fn`` reads its inputs
-  without writing them), captures ``fn`` on the slots into a
-  ``torch.cuda.CUDAGraph``, and replays it once: the first call's result is
-  exactly one step.
+  caching allocator; its result is dropped), captures ``fn`` on the slots
+  into a ``torch.cuda.CUDAGraph``, and replays it once: the first call's
+  result is exactly one step.
+* ``fn`` may write its first argument in place: it runs on the slots,
+  never on the caller's tensors. The warm-up's writes land in the slots,
+  and the first replay fills those slots again from the caller's inputs,
+  since a first call's inputs are never the slots.
 * A later call copies each input into its slot (not one the caller passed
   as the slot itself) and replays. A donating step counts its calls whose
   donated argument came in as its slots (``step.state_in_place``) and those
@@ -29,10 +32,13 @@ On CUDA tensors:
 * ``donate``: the first output (the whole output when it is not a tuple)
   has the structure of the first argument, and the graph writes it into
   that argument's slots, so the returned state IS the slots and the next
-  call that passes it back copies nothing. As in JAX, the state passed in
-  is consumed: a caller that passes the slots must not expect them to keep
-  their old values. Without ``donate`` that output is cloned.
-  ``CompiledStep.holds(tree)`` tells whether ``tree`` is such slots.
+  call that passes it back copies nothing. An output leaf that ``fn``
+  wrote in place is its slot already and is not copied; each graph counts
+  the others at its capture (``GraphStats.slot_copies_per_replay``). As in
+  JAX, the state passed in is consumed: a caller that passes the slots
+  must not expect them to keep their old values. Without ``donate`` that
+  output is cloned. ``CompiledStep.holds(tree)`` tells whether ``tree`` is
+  such slots.
 * Every other output is cloned after the replay, so a value the caller
   holds never changes under a later call (JAX returns fresh arrays).
 * A capture that fails raises, naming the signature; nothing falls back to
@@ -40,7 +46,8 @@ On CUDA tensors:
   data-dependent shape) nor copy from host memory (``torch.tensor`` of
   host data) inside its body.
 
-On the CPU ``fn`` runs as it is: the plain path, as for the kernels' twins.
+On the CPU ``fn`` runs as it is, on a copy of its first argument: the plain
+path, as for the kernels' twins (``plain(fn)`` is that path on any device).
 
 Every call of one step must enqueue on one stream (the node's threads all
 use the default stream): the graphs share their temporaries (see Memory).
@@ -83,8 +90,11 @@ Spans (``utils/tracing.py``): ``step.call`` around every call, with
 ``step.capture`` around a first call (counted in ``step.captures``); on the
 card ``step.device`` from the end of the enqueue to the work's completion
 on the device, and a reading of the allocator's device allocations every
-``tracing.ALLOC_EVERY`` calls. Each graph's ``GraphStats.replays`` is the
-counter ``graphs.replays``, K1's and K4's ``launches`` the counters
+``tracing.ALLOC_EVERY`` calls. A replay's ``step.launch`` carries
+``SLOT_COPIES`` and the graph's donated outputs copied into their slots
+in its ``attr``. Each graph's ``GraphStats.replays`` is the counter
+``graphs.replays``, its ``GraphStats.slot_copies`` the counter
+``step.slot_copies``, K1's and K4's ``launches`` the counters
 ``polar_field.launches`` and ``resample.launches``.
 """
 
@@ -114,6 +124,9 @@ _DEVICE = tracing.name_id("step.device")
 # argument came in as the graph's slots, or was copied into them.
 STATE_IN_PLACE = 1
 STATE_COPIED_IN = 2
+# The ``attr`` of a replay's ``step.launch`` span: this bit, and below it
+# the number of donated outputs the graph copies into their slots.
+SLOT_COPIES = 1 << 32
 
 # Modules whose ``launches`` counter the graphs keep (``count_launches``).
 _COUNTED: List[Any] = []
@@ -195,7 +208,9 @@ class GraphStats:
     pool_bytes: int  # device memory its capture added to the step's pool
     slot_bytes: int  # the input slots
     launches_per_replay: Dict[str, int]  # by counting module
+    slot_copies_per_replay: int  # donated outputs copied into their slots
     replays: int = 0
+    slot_copies: int = 0  # over the replays
 
 
 def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -297,13 +312,16 @@ class _Graph:
             pool_bytes=pool_bytes,
             slot_bytes=sum(s.numel() * s.element_size() for s in self.slots),
             launches_per_replay={m.__name__: n for m, n in self.per_replay.items()},
+            slot_copies_per_replay=self.slot_copies,
         )
         tracing.register("graphs.replays", self.stats, "replays")
+        tracing.register("step.slot_copies", self.stats, "slot_copies")
 
     def _bind_outputs(self, out, spec0, n_donated, donate, label):
-        """Inside the capture: write the donated output into its slots, and
-        keep every output apart from the input slots (an output sharing
-        memory with an input slot is cloned before any slot is written).
+        """Inside the capture: write the donated output into its slots
+        (a leaf ``fn`` wrote in place is its slot already), and keep every
+        other output apart from the input slots (one sharing memory with an
+        input slot is cloned before the donated output is copied in).
         Returns the graph's outputs, flattened."""
         self.out_spec, outs = _flatten(out)
         dslots = self.slots[:n_donated] if donate else []
@@ -325,9 +343,10 @@ class _Graph:
             else o.clone() if o.untyped_storage().data_ptr() in slot_ptrs else o
             for i, o in enumerate(outs)
         ]
-        for s, o in zip(dslots, outs):
-            if o is not s:
-                s.copy_(o)
+        copied = [(s, o) for s, o in zip(dslots, outs) if not _same_memory(s, o)]
+        for s, o in copied:
+            s.copy_(o)
+        self.slot_copies = len(copied)
         self.donated = len(dslots)
         return dslots + outs[len(dslots):]
 
@@ -345,9 +364,11 @@ class _Graph:
                 s.copy_(t)
         tracing.end(sp)
         sp = tracing.begin(_LAUNCH)
+        tracing.tag(sp, SLOT_COPIES | self.slot_copies)
         self.graph.replay()
         tracing.end(sp)
         self.stats.replays += 1
+        self.stats.slot_copies += self.slot_copies
         for m, n in self.per_replay.items():
             m.launches += n
         sp = tracing.begin(_CLONE_OUT)
@@ -392,7 +413,7 @@ class CompiledStep:
                           _walk(kwargs, leaves)))
         dev = leaves[0].device if leaves else None
         if dev is None or not BACKEND.applies(dev):
-            return self.fn(*args, **kwargs)
+            return self.fn(*_first_copied(args), **kwargs)
         if any(t.device != dev for t in leaves):
             raise ValueError(f"{self.name}: every tensor must be on {dev}")
         key = (spec, tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
@@ -448,6 +469,28 @@ class CompiledStep:
         with self._lock:
             self.graphs.clear()
             self._pool = None
+
+
+def _first_copied(args: tuple) -> tuple:
+    """``args`` with the first argument's tensors cloned, for an ``fn`` that
+    may write it in place: the caller's own tensors never change."""
+    if not args:
+        return args
+    spec, leaves = _flatten(args[0])
+    return (_unflatten(spec, [t.clone() for t in leaves]),) + tuple(args[1:])
+
+
+def plain(fn):
+    """``fn`` run as it is, on a copy of its first argument (which ``fn``
+    may write in place), as ``jit(fn)`` runs on the CPU: the eager step.
+    ``.fn`` is ``fn`` itself, for a caller that owns what it passes."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        return fn(*_first_copied(args), **kwargs)
+
+    run.fn = fn
+    return run
 
 
 def jit(fn, donate: bool = True, warm: bool = True) -> CompiledStep:

@@ -1360,8 +1360,11 @@ def test_donating_facade_equals_non_donating_on_card(cuda, preset):
     copies the map into its graph and clones it out (``donate=False``): 40
     scans of a VLP-16-sized cloud into each preset's map (LOCAL 150^2 with
     K1 / K4, GLOBAL 2000^2 with its window) give the same map bit for bit,
-    every call after the first passes the graph's own slots back, and a
-    steady-state call clones none of the map's tensors, only the aux."""
+    every call after the first passes the graph's own slots back, a
+    steady-state call clones none of the map's tensors, only the aux, and
+    the GLOBAL graph copies no donated output into its slot (the window is
+    written into the slots in place), where LOCAL's move makes new layers
+    that the graph copies, each into its slot."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from fastdem_tpu_torch import presets
@@ -1398,6 +1401,8 @@ def test_donating_facade_equals_non_donating_on_card(cuda, preset):
         for mapper in (donating, copying):
             assert mapper.integrate(clouds[k], T_bs, poses[k])
     (graph,) = donating._map.step.graphs.values()
+    want = 0 if preset == "global_mapping_node" else graph.donated
+    assert graph.stats.slot_copies_per_replay == want
     slots = {s.data_ptr() for s in graph.slots[: graph.donated]}
     with Clones() as clones:
         assert donating.integrate(clouds[39], T_bs, poses[39])

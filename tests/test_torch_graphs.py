@@ -145,6 +145,27 @@ def test_step_is_capture_safe(rng, name):
             torch.tensor(pose(1)), torch.tensor(rng.random(4096).astype(np.float32)))
 
 
+@pytest.mark.parametrize("donate", [True, False])
+def test_cpu_step_leaves_the_state_passed_in(rng, donate):
+    """On the CPU, where nothing is captured, the compiled step runs on a
+    copy of the state: the windowed update writes its window into that
+    copy, so the state passed in stays as it was, bit for bit, and a
+    second call on it gives the same map."""
+    length, cfg, _ = STEPS["global windowed"]
+    geom = ft.GridGeometry.from_length(length, length, 0.1)
+    step = ft.build_integrate(geom, cfg, donate=donate, device="cpu")
+    state = ft.create_map_state(geom, cfg, device="cpu")
+    args = (torch.tensor(scan(rng)), torch.ones(4096, dtype=torch.bool), torch.tensor(T_BS),
+            torch.tensor(pose(1)))
+    state, _ = step(state, *args)
+    kept = copy.deepcopy(state)
+    first, _ = step(state, *args)
+    assert_bitwise(state, kept)
+    again, _ = step(state, *args)
+    assert_bitwise(first, again)
+    assert not torch.equal(first.layers["n_points"], kept.layers["n_points"])
+
+
 def test_block_step_is_capture_safe(rng):
     """The step of one block of a 2x2 map (``spmd_blocks``), its block
     keyword a constant of the signature."""

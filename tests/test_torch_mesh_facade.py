@@ -219,8 +219,9 @@ def test_one_card_facade_unchanged(monkeypatch):
     graphs), then one replay and a reset under a recording dispatch mode:
     the signatures are those of the facade before meshes; the ops are the
     donating step's (no copy of the map into the slots nor clone out of
-    them, one copy a layer into its slot inside the graph, a reset that
-    fills the slots in place)."""
+    them, the window written into each layer's slot in place and the
+    obstacle layer reset there, no copy of a layer into its slot inside
+    the graph, a reset that fills the slots in place)."""
     monkeypatch.setattr(graphs, "BACKEND", RecordingGraphs())
     geom = ft.GridGeometry.from_length(20.0, 20.0, 0.1)
     cfg = ft.Config()
@@ -253,4 +254,4 @@ def test_one_card_facade_unchanged(monkeypatch):
         m.reset()
     digest = hashlib.sha256("\n".join(ops.names).encode()).hexdigest()
     assert (len(ops.names), digest) == (
-        555, "df54036c7d1d651a5dd16ac47390414107dc03de83fec61fb170758aa4c85cff")
+        533, "56ebe0c37aafa78340e824720b0f9053375ad6d71c5cae982d17a5fa6b527cc3")

@@ -156,6 +156,48 @@ def test_compiled_sequence_equals_eager(recorded, case):
     assert len(graph_seq.graphs) == 1
 
 
+@pytest.mark.parametrize("build", ["block step", "sharded step"])
+def test_windowed_blocks_are_written_in_place(recorded, build):
+    """The windowed block step (``spmd_blocks=(2, 2)``, one graph per
+    block) and the sharded step (one graph holding the device's four
+    blocks), compiled and donating, on the recording double: each graph
+    copies no donated output into its slot (every block is written in
+    place), the returned blocks are the slots, the blocks equal the
+    unsharded windowed step's map bit for bit after every scan, and the
+    eager sharded step leaves the blocks passed in as they were."""
+    geom, cfg, stream, T_bs = windowed_case()
+    mesh = cpu_mesh(4, (2, 2))
+    ref_step = ft.build_integrate(geom, cfg, jit=False, device="cpu")
+    ref = create_map_state(geom, cfg, device="cpu")
+    state = sh.shard_state(create_map_state(geom, cfg, device="cpu"), mesh)
+    if build == "block step":
+        step = ft.build_integrate(geom, cfg, spmd_blocks=mesh.shape, device="cpu")
+        steps = [step]
+    else:
+        step, _ = sh.build_sharded_integrate(geom, cfg, mesh)
+        eager, _ = sh.build_sharded_integrate(geom, cfg, mesh, jit=False)
+        steps = list(step.per_device.values())
+    for args in tensors(stream, T_bs):
+        ref, _ = ref_step(ref, *args)
+        if build == "block step":
+            blocks = {slot: step(state.block(slot), *args, block=slot)[0].layers
+                      for slot in mesh.slots()}
+            state = sh.ShardedState(state.mesh, state.shape, blocks, state.position)
+        else:
+            kept = sh.gather_state(state)
+            assert_bitwise(ref, sh.gather_state(eager(state, *args)[0]))
+            assert_bitwise(kept, sh.gather_state(state))
+            state, _ = step(state, *args)
+        assert_bitwise(ref, sh.gather_state(state))
+        graphs_ = [g for s in steps for g in s.graphs.values()]
+        slots = {id(t) for g in graphs_ for t in g.slots}
+        assert all(id(t) in slots for b in state.blocks.values() for t in b.values())
+    assert len(graphs_) == (4 if build == "block step" else 1)
+    for g in graphs_:
+        assert g.stats.slot_copies_per_replay == g.stats.slot_copies == 0
+        assert g.stats.replays == len(stream)
+
+
 def test_signature_keys(recorded):
     """The mesh is a constant of the signature and the blocks its leaves;
     one graph per channel set and scan capacity, and per K for the

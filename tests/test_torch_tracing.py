@@ -369,11 +369,16 @@ def test_graph_step_spans_on_the_recording_double(monkeypatch):
     cfg = ft.Config()
     cfg.raycasting.enabled = False
     mapper = ft.FastDEM(ft.GridGeometry.from_length(6.0, 6.0, 0.1), cfg, device="cpu")
-    captures = tracing.counters().get("step.captures", 0)
+    before = tracing.counters()
     for k in range(3):
         assert mapper.integrate(ft.cloud.from_numpy(ring_scan(k), frame_id="lidar",
                                                     device="cpu"), T_BS, pose(k))
-    assert tracing.counters()["step.captures"] == captures + 1
+    after = tracing.counters()
+    assert after["step.captures"] == before.get("step.captures", 0) + 1
+    # A LOCAL step's move makes new layers: the graph copies each of them,
+    # and the position, into its slot on every replay, and says so.
+    copies = len(mapper.live_state().layers) + 1
+    assert after["step.slot_copies"] == before.get("step.slot_copies", 0) + 3 * copies
     tab = tracing.table()
     calls = rows(tab, "step.call")
     assert len(calls) == 3
@@ -382,6 +387,8 @@ def test_graph_step_spans_on_the_recording_double(monkeypatch):
     assert kids[1] == kids[2] == ["step.clone_out", "step.copy_in", "step.launch"]
     cap = rows(tab, "step.capture")[0]
     assert kid_names(tab, tab.seq[cap]) == ["step.clone_out", "step.copy_in", "step.launch"]
+    launches = tab.attr[rows(tab, "step.launch")]
+    assert (launches == graphs.SLOT_COPIES | copies).all() and len(launches) == 3
     # No device spans on the CPU.
     assert len(rows(tab, "step.device")) == 0
 

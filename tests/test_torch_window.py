@@ -21,6 +21,7 @@ import fastdem_tpu as fj
 import fastdem_tpu_torch as ft
 from fastdem_tpu.mapping import pipeline as pl_j
 from fastdem_tpu_torch.cloud.pointcloud import from_numpy
+from test_torch_graphs import recorded  # noqa: F401 (fixture)
 from test_torch_package import one_torch_thread  # noqa: F401 (autouse)
 
 ESTIMATORS = ["kalman", "p2"]
@@ -112,6 +113,65 @@ def test_global_windowed_exact(raycast, est):
     assert a2.obs.touched.shape == geom40().shape
     assert_exact(s1, a1, s2, a2)
     assert (s2.layers["n_points"] > 0).sum() > 3000
+
+
+def raw_bits(t):
+    return np.ascontiguousarray(t.numpy()).view(np.uint8)
+
+
+def assert_same_bits(s1, a1, s2, a2):
+    """``assert_exact``, bit for bit (NaN payloads and signed zeros too)."""
+    assert set(s1.layers) == set(s2.layers)
+    for k in s1.layers:
+        np.testing.assert_array_equal(raw_bits(s1.layers[k]), raw_bits(s2.layers[k]),
+                                      err_msg=f"layer {k}")
+    np.testing.assert_array_equal(raw_bits(s1.position), raw_bits(s2.position))
+    for f in ("min_z", "min_z_var", "max_z", "touched", "max_intensity", "voxel_count"):
+        va, vb = getattr(a1.obs, f), getattr(a2.obs, f)
+        assert (va is None) == (vb is None), f
+        if va is not None:
+            np.testing.assert_array_equal(raw_bits(va), raw_bits(vb), err_msg=f"aux obs.{f}")
+
+
+@pytest.mark.parametrize("raycast", [False, True])
+@pytest.mark.parametrize("est", ESTIMATORS)
+def test_donated_windowed_step_writes_its_slots_in_place(recorded, raycast, est):
+    """The windowed GLOBAL step through ``build_integrate(jit=True,
+    donate=True)`` on the graphs' recording double: after every scan the
+    map and the aux observations equal the eager windowed step's and the
+    full-map step's bit for bit; the returned layers are the graph's
+    slots, written in place, so the graph copies no donated output into
+    its slot; and the steps that do not own the state passed in (without
+    ``donate``, and ``jit=False``) leave it as it was, bit for bit."""
+    geom, cfg = geom40(), config(ft, est=est, raycast=raycast)
+
+    def build(**kw):
+        return ft.build_integrate(geom, cfg, has_intensity=True, device="cpu", **kw)
+
+    steps = {"donated": build(), "not donated": build(donate=False),
+             "eager": build(jit=False), "full map": build(window_update=False, jit=False)}
+    states = {name: ft.create_map_state(geom, cfg, has_intensity=True, device="cpu")
+              for name in steps}
+    for xyz, mask, pose, inten in scans():
+        args = tuple(torch.tensor(a) for a in (xyz, mask, T_BS, pose, inten))
+        aux = {}
+        for name, step in steps.items():
+            held = states[name]
+            kept = {k: v.clone() for k, v in held.layers.items()}
+            states[name], aux[name] = step(held, *args)
+            if name in ("not donated", "eager"):
+                for k, v in kept.items():
+                    np.testing.assert_array_equal(raw_bits(held.layers[k]), raw_bits(v),
+                                                  err_msg=f"{name}: layer {k} passed in")
+        for name in ("not donated", "eager", "full map"):
+            assert_same_bits(states["donated"], aux["donated"], states[name], aux[name])
+        (graph,) = steps["donated"].graphs.values()
+        got = list(states["donated"].layers.values()) + [states["donated"].position]
+        assert all(t is s for t, s in zip(got, graph.slots))
+    assert int(aux["donated"].oow_points) == 0
+    assert graph.stats.replays == len(scans())
+    assert graph.stats.slot_copies_per_replay == graph.stats.slot_copies == 0
+    assert (states["donated"].layers["n_points"] > 0).sum() > 3000
 
 
 def test_local_big_map_windowed_exact():
