@@ -1,5 +1,6 @@
 """The plain per-scan map update, as the port's eager step computes it
-(frozen copy of the port's ``mapping/pipeline.py``, cut to the two
+(frozen copy of the port's ``mapping/pipeline.py``, with both of its
+estimators, Kalman (``kalman.py``) and P^2 (``p2.py``), cut to the two
 formulations the benchmark's configurations run):
 
   * the full-map update in rows mode, with the polar raycast (K1's and K4's
@@ -8,7 +9,7 @@ formulations the benchmark's configurations run):
     in rows mode, without the raycast.
 
 Each scan: transform, LiDAR z-variance, range and height filters, the row
-rasterizer, the Kalman update, min / max, obstacle, and the raycast's
+rasterizer, the estimator's update, min / max, obstacle, and the raycast's
 visibility update; in LOCAL mode the map first moves with the robot.
 
 ``dtype`` is the precision the map layers are kept in between scans: the
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from . import kalman as kalman_est
+from . import p2 as p2_est
 from . import rasterize as raster
 from . import raycasting as raycast
 from . import transform as tfm
@@ -36,9 +38,13 @@ from .numerics import recip_f32, sum_sq
 from .sensors import create_sensor_model
 
 
+def _is_p2(cfg: Config) -> bool:
+    return cfg.mapping.estimation_type == EstimationType.P2_QUANTILE
+
+
 def initial_layer_fills(cfg: Config) -> Dict[str, float]:
     fills = gridmap.default_layer_fills()
-    fills.update(kalman_est.layer_fills())
+    fills.update(p2_est.layer_fills() if _is_p2(cfg) else kalman_est.layer_fills())
     fills[layers.obstacle] = np.nan
     if cfg.raycasting.enabled:
         fills.update(raycast.layer_fills())
@@ -90,8 +96,6 @@ class _Window:
 def build_step(geom: GridGeometry, cfg: Config, window_margin: float = 2.0,
                dtype=torch.float32):
     """``step(state, xyz, mask, T_bs, T_wb) -> state`` on the tensors' device."""
-    if cfg.mapping.estimation_type != EstimationType.KALMAN:
-        raise NotImplementedError("the reference has the Kalman estimator only")
     if cfg.raycasting.enabled and cfg.raycasting.method == "sampled":
         raise NotImplementedError("the reference has the polar raycast only")
     sensor = create_sensor_model(cfg.sensor_model)
@@ -148,9 +152,14 @@ def build_step(geom: GridGeometry, cfg: Config, window_margin: float = 2.0,
         return r0, c0
 
     def update_layers(state, obs, ray, sensor_origin, frame_nonempty):
-        state = kalman_est.update(
-            state, cfg.mapping.kalman, obs.min_z, obs.min_z_var, obs.touched
-        )
+        if _is_p2(cfg):
+            state = p2_est.estimate(
+                state, cfg.mapping.p2, obs.min_z, obs.min_z_var, obs.touched
+            )
+        else:
+            state = kalman_est.update(
+                state, cfg.mapping.kalman, obs.min_z, obs.min_z_var, obs.touched
+            )
         state = _update_minmax(state, obs)
         state = _update_obstacle(state, obs, frame_nonempty)
         if cfg.raycasting.enabled:
